@@ -2,9 +2,14 @@
 """Smoke run of plz4_tpu_torch on one CUDA GPU.
 
 Builds the CUDA kernels from csrc/, holds each kernel against its plain
-version at the main path's shapes, then drives the main path (a 256 MiB
-LZ4 frame of 64 KiB level-1 blocks, compress then decompress with
-backend="device") and checks that it went through both kernels.
+version at the main path's shapes, then drives the main paths with
+backend="device" and checks that they went through the kernels:
+
+  * a 256 MiB LZ4 frame of 64 KiB level-1 blocks (K2a, K1);
+  * the same 256 MiB at the default 4 MiB blocks (K2b over 64 KiB chunk
+    rows, K5 over records);
+  * 32 MiB frames of 64 KiB blocks with a dictionary (K2b, K3) and with
+    linked blocks (K2b).
 
     python3 chip_smoke.py
 
@@ -25,6 +30,8 @@ import numpy as np
 
 BLOCK = 65536
 ROWS = 128  # the device writer's batch at 64 KiB blocks
+BIG = 4 << 20  # the default block size
+CHUNKS = BIG // BLOCK  # 64 KiB chunk rows per 4 MiB block
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate
 OPS_PER_BYTE = 16  # generous integer-op count of the serial parse
@@ -133,6 +140,39 @@ def bound_ms(nbytes: int, nops: int) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def host_rss_mib() -> int:
+    """Resident set of the process now (VmRSS), in MiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) // 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class RssPeak:
+    """Largest resident set seen while the block runs, sampled every 10 ms
+    by a thread (VmHWM cannot be reset, nor even read, everywhere)."""
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = host_rss_mib()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.01):
+                self.peak = max(self.peak, host_rss_mib())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, host_rss_mib())
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"FAILED: {what}")
@@ -180,7 +220,7 @@ def main() -> int:
     edges = edge_payloads()
     main_rows = [main_data[i:i + BLOCK] for i in range(0, ROWS * BLOCK, BLOCK)]
 
-    # ---- 3. K2 against its plain version --------------------------------
+    # ---- 3. K2a against its plain version --------------------------------
     def enc_both(payloads):
         a, n = rows_of(payloads, BLOCK)
         ha, hn = torch.from_numpy(a), torch.from_numpy(n)
@@ -192,9 +232,9 @@ def main() -> int:
         tot = plain[1].numpy()
         check(bool((kern[1].cpu().numpy() == tot).all()
                    and (kern[2].cpu().numpy() == okv).all()),
-              f"K2 ok/total equal plain on {len(payloads)} rows")
+              f"K2a ok/total equal plain on {len(payloads)} rows")
         err = max_err(kern, plain, np.where(okv, tot, 0))
-        check(err == 0, "K2 stream bytes equal plain where ok (max abs "
+        check(err == 0, "K2a stream bytes equal plain where ok (max abs "
                         f"err {err})")
         return (da, dn), kern, plain, p_ms, err
 
@@ -202,7 +242,7 @@ def main() -> int:
     (_, x_kern, _, _, x_err) = enc_both(bench_rows + edges)
     x_tot = x_kern[1].cpu().numpy()
     ratio = 32 * BLOCK / int(x_tot[:32].sum())
-    print(f"K2 level-1 ratio on the bench corpus (32 rows): {ratio:.4f}")
+    print(f"K2a level-1 ratio on the bench corpus (32 rows): {ratio:.4f}")
     check(round(ratio, 3) == 2.407, "bench-corpus ratio rounds to 2.407")
     enc_ms = cuda_ms(lambda: encode.encode_batch(*e_in), 20)
     e_tot = e_plain[1].numpy()
@@ -213,7 +253,7 @@ def main() -> int:
     C = BLOCK + decode.ROW_SLACK
 
     def streams_of(kern, payloads):
-        """K2's stream of each ok row; the native stream of a row K2 left
+        """K2a's stream of each ok row; the native stream of a row K2a left
         raw, where that fits a block."""
         out, tot, okv = (t.cpu().numpy() for t in kern)
         streams = []
@@ -241,7 +281,7 @@ def main() -> int:
         return (da, dn), kern, plain, p_ms, err
 
     main_streams = streams_of(e_kern, main_rows)
-    check(len(main_streams) == ROWS, "K2 compressed every main-path row")
+    check(len(main_streams) == ROWS, "K2a compressed every main-path row")
     (d_in, d_kern, d_plain, dec_plain_ms, dec_err) = dec_both(main_streams)
     check(bool(d_plain[2].numpy().all()), "K1 decodes every main-path row")
     x_streams = streams_of(x_kern, bench_rows + edges)
@@ -277,7 +317,7 @@ def main() -> int:
     check(back == main_data, "256 MiB device round trip is intact")
     n_blocks = len(main_data) // BLOCK
     check(enc_launches == math.ceil(n_blocks / ROWS),
-          f"K2 ran once per batch on the main path ({enc_launches})")
+          f"K2a ran once per batch on the main path ({enc_launches})")
     read_batch = plz4.Options(**opts).pending_budget()
     check(dec_launches == math.ceil(n_blocks / read_batch),
           f"K1 ran once per batch on the main path ({dec_launches})")
@@ -290,12 +330,287 @@ def main() -> int:
     gb = len(main_data) / 1e9
     print(f"main path [{smi}]: encode {gb / (t_enc / 1e3):.3f} GB/s, "
           f"decode {gb / (t_dec / 1e3):.3f} GB/s through Writer/Reader; "
-          f"kernel ms per {ROWS}-row batch: K2 {enc_ms:.3f}, K1 "
+          f"kernel ms per {ROWS}-row batch: K2a {enc_ms:.3f}, K1 "
           f"{dec_ms:.3f}; frame ratio {len(main_data) / len(frame):.4f}; "
           f"peak device memory {peak / 2**20:.1f} MiB")
 
+    # ---- 6. K2b against its plain version -------------------------------
+    from plz4_tpu_torch.parallel import large
+
+    big_blocks = [main_data[i * BIG:(i + 1) * BIG] for i in range(2)]
+    dict64 = corpus.silesia_like(BLOCK, seed=77)
+
+    def chunk_batch(blocks, dicts):
+        """K2b's operands for the chunk rows of large blocks, as the
+        device writer stages them."""
+        R = len(blocks) * CHUNKS
+        t = (torch.zeros((R, BLOCK), dtype=torch.uint8),
+             torch.zeros((R,), dtype=torch.int32),
+             torch.zeros((len(blocks), BLOCK), dtype=torch.uint8),
+             torch.zeros((R,), dtype=torch.int32))
+        large.stage_chunks(blocks, dicts,
+                           t[0].numpy().reshape(len(blocks), CHUNKS, BLOCK),
+                           t[1].numpy().reshape(len(blocks), CHUNKS),
+                           t[3].numpy().reshape(-1, CHUNKS), t[2].numpy())
+        return t
+
+    def window_both(host_args, what, **kw):
+        dev_args = [x.to(dev) for x in host_args]
+        kern = encode.encode_batch_window(*dev_args, **kw)
+        torch.cuda.synchronize()
+        plain, p_ms = host_ms(
+            lambda: encode.encode_batch_window_plain(*host_args, **kw))
+        okv, tot = plain[2].numpy(), plain[1].numpy()
+        check(bool((kern[1].cpu().numpy() == tot).all()
+                   and (kern[2].cpu().numpy() == okv).all()),
+              f"K2b ok/total equal plain on {what}")
+        err = max_err(kern, plain, np.where(okv, tot, 0))
+        check(err == 0, f"K2b stream bytes equal plain where ok on {what} "
+                        f"(max abs err {err})")
+        return dev_args, kern, plain, p_ms, err
+
+    cw_host = chunk_batch(big_blocks, None)
+    (cw_in, cw_kern, cw_plain, encw_plain_ms, encw_err) = window_both(
+        cw_host, f"{2 * CHUNKS} chunk rows of two 4 MiB blocks (wstride 2)",
+        wstride=large.CHUNK_WSTRIDE, chunks=CHUNKS)
+    # one window per row (wstride 1): a full 64 KiB dictionary, a partial
+    # window, an empty one, and a short block after the dictionary
+    w_rows = [main_data[j * BLOCK:(j + 1) * BLOCK] for j in (5, 6, 7)] + [
+        vocab_text(4096, 3)]
+    w_wins = [dict64, main_data[4 * BLOCK:5 * BLOCK],
+              edges[-1], dict64]
+    wa, wn = rows_of(w_rows, BLOCK)
+    wd, _ = rows_of(w_wins, BLOCK)
+    w_host = (torch.from_numpy(wa), torch.from_numpy(wn),
+              torch.from_numpy(wd),
+              torch.tensor([BLOCK, 3000, 0, BLOCK], dtype=torch.int32))
+    (_, ww_kern, _, _, ww_err) = window_both(
+        w_host, "rows with a full, a partial and an empty window (wstride 1)")
+    encw_ms = cuda_ms(lambda: encode.encode_batch_window(
+        *cw_in, wstride=large.CHUNK_WSTRIDE, chunks=CHUNKS), 10)
+    cw_lens = cw_host[1].numpy()
+    cw_tot = cw_plain[1].numpy()
+    encw_bound = bound_ms(
+        int(cw_lens.sum()) + cw_host[2].numel() + 8 * len(cw_lens)
+        + int(cw_tot.sum()) + 5 * len(cw_lens),
+        OPS_PER_BYTE * (int(cw_lens.sum())
+                        + int(cw_host[3].numpy().sum()) // 2))
+
+    # ---- 7. K3 against its plain version --------------------------------
+    dbuf = torch.from_numpy(np.frombuffer(dict64, np.uint8).copy())
+
+    def dict_both(streams, what):
+        a, n = rows_of(streams, C)
+        ha, hn = torch.from_numpy(a), torch.from_numpy(n)
+        da, dn, dd = ha.to(dev), hn.to(dev), dbuf.to(dev)
+        kern = decode.decode_batch_dict(da, dn, dd, BLOCK, BLOCK)
+        torch.cuda.synchronize()
+        plain, p_ms = host_ms(lambda: decode.decode_batch_dict_plain(
+            ha, hn, dbuf, BLOCK, BLOCK))
+        nn = plain[1].numpy()
+        check(bool((kern[1].cpu().numpy() == nn).all()
+                   and (kern[2].cpu().numpy() == plain[2].numpy()).all()),
+              f"K3 ok/n_out equal plain on {what}")
+        err = max_err(kern, plain, nn)
+        check(err == 0, f"K3 bytes [0, n_out) equal plain on {what} (max "
+                        f"abs err {err})")
+        return (da, dn, dd), kern, plain, p_ms, err
+
+    dict_main = [native.compress(main_data[i * BLOCK:(i + 1) * BLOCK],
+                                 level=1, dict_=dict64) for i in range(ROWS)]
+    (k3_in, _, k3_plain, k3_plain_ms, k3_err) = dict_both(
+        dict_main, f"{ROWS} dictionary blocks of the main data")
+    check(bool(k3_plain[2].numpy().all()), "K3 decodes every dictionary block")
+    wout, wtot, wok = (t.cpu().numpy() for t in ww_kern)
+    k2b_dict = [wout[i, :wtot[i]].tobytes() for i in (0, 3) if wok[i]]
+    check(len(k2b_dict) == 2, "K2b compressed both full-dictionary rows")
+    edge_dict = [native.compress(p, level=1, dict_=dict64) for p in edges[:9]]
+    bad_off = [bytes([0x00, 0x04, 0x00, 0x40]) + b"abcd",  # ends at window
+               bytes([0x00, 0xFF, 0xFF, 0x40]) + b"abcd",  # offset 65535
+               bytes([0x04, 0, 0]), b"\xff" * 40]
+    k3_corrupt = corrupt_streams(dict_main[:16] + k2b_dict + edge_dict,
+                                 seed=0xD1C7)
+    good = k2b_dict + edge_dict + bad_off[:2]
+    (_, _, x3_plain, _, x3_err) = dict_both(
+        good + bad_off[2:] + k3_corrupt, "K2b, native, bad-offset and "
+        "corrupt dictionary streams")
+    x3_ok = x3_plain[2].numpy()
+    check(bool(x3_ok[:len(good)].all())
+          and not x3_ok[len(good):len(good) + 2].any(),
+          "K3 verdicts: valid streams ok, zero-offset and endless streams "
+          "refused")
+    x3_n = x3_plain[1].numpy()
+    check(bool(x3_plain[0][len(good) - 2, :x3_n[len(good) - 2]].numpy()
+               .tobytes() == dict64[-4:] + b"abcd"),
+          "K3: a match that ends at the window/block boundary")
+    k3_ms = cuda_ms(lambda: decode.decode_batch_dict(*k3_in, BLOCK, BLOCK),
+                    20)
+    k3_bound = bound_ms(
+        sum(len(s) for s in dict_main) + 4 * ROWS + BLOCK
+        + int(k3_plain[1].numpy().sum()) + 5 * ROWS,
+        OPS_PER_BYTE * int(k3_plain[1].numpy().sum()))
+
+    # ---- 8. K5 against its plain version --------------------------------
+    def record_batch(items, dicts):
+        """K5's operands for large blocks, as the device reader stages
+        them; items [(stored block, records)], dicts per block."""
+        K = max(max(len(r) for _, r in items), CHUNKS + 1)
+        t = (torch.zeros((len(items), K, large.CHUNK_IN), dtype=torch.uint8),
+             torch.zeros((len(items), K, 7), dtype=torch.int32),
+             torch.zeros((len(items), BLOCK), dtype=torch.uint8))
+        for j, (item, d) in enumerate(zip(items, dicts)):
+            large.stage_records([item], d, t[0].numpy()[j:j + 1],
+                                t[1].numpy()[j:j + 1], t[2].numpy()[j:j + 1])
+        return t
+
+    def split(stored):
+        return stored, native.chunk_split(stored, BLOCK, max_out=BIG)
+
+    def records_both(host_args, what):
+        dev_args = [x.to(dev) for x in host_args]
+        kern = decode.decode_records_batch(*dev_args)
+        torch.cuda.synchronize()
+        plain, p_ms = host_ms(
+            lambda: decode.decode_records_batch_plain(*host_args))
+        nn = plain[1].numpy()
+        check(bool((kern[1].cpu().numpy() == nn).all()
+                   and (kern[2].cpu().numpy() == plain[2].numpy()).all()),
+              f"K5 ok/n_out equal plain on {what}")
+        flat = [t.reshape(-1, BLOCK) if t.dim() == 3 else t.reshape(-1)
+                for t in kern]
+        pflat = [t.reshape(-1, BLOCK) if t.dim() == 3 else t.reshape(-1)
+                 for t in plain]
+        err = max_err(flat, pflat, nn.reshape(-1))
+        check(err == 0, f"K5 bytes [0, n_out) equal plain on {what} (max "
+                        f"abs err {err})")
+        return dev_args, kern, plain, p_ms, err
+
+    k5_items = [split(native.compress(big_blocks[0], level=1)),
+                split(native.compress(big_blocks[1], level=1, dict_=dict64))]
+    check(all(r is not None and len(r) > 1 for _, r in k5_items),
+          "both stored 4 MiB blocks split into records")
+    k5_host = record_batch(k5_items, [None, dict64])
+    n_recs = sum(len(r) for _, r in k5_items)
+    (_, _, k5_plain, _, k5_err) = records_both(
+        k5_host, f"two 4 MiB blocks, {n_recs} records, the second after a "
+        "64 KiB dictionary")
+    ok5, n5 = k5_plain[2].numpy(), k5_plain[1].numpy()
+    check(all(bool(ok5[j, :len(r)].all())
+              and (n5[j, :len(r)] == r[:, 6]).all()
+              and b"".join(k5_plain[0][j, k, :n5[j, k]].numpy().tobytes()
+                           for k in range(len(r))) == big_blocks[j]
+              for j, (_, r) in enumerate(k5_items)),
+          "K5 rebuilds both 4 MiB blocks")
+    bad_rows, bad_metas = k5_host[0].clone(), k5_host[1].clone()
+    bad_rows[0, 7, 50:60] ^= 0x5A  # flipped bytes in a record slice
+    bad_metas[0, 20, 0] -= 9  # a truncated record
+    bad_metas[1, 11, 0] += 5  # a record slice that runs long
+    bad_rows[1, 30, 5] ^= 0xFF
+    (_, _, _, _, k5c_err) = records_both(
+        (bad_rows, bad_metas, k5_host[2]), "truncated and flipped records")
+
+    # ---- 9. main path at the default 4 MiB blocks ------------------------
+    opts4 = dict(backend="device", level=1)  # default block size, checksum
+    warm4 = main_data[: 2 * BIG]
+    check(plz4.decompress(plz4.compress(warm4, **opts4),
+                          backend="device") == warm4,
+          "warm-up round trip at 4 MiB blocks")
+    del frame, back, native_frame
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    encode.launches = encode.window_launches = 0
+    decode.launches = decode.dict_launches = decode.record_launches = 0
+    large.host_decodes = 0
+    with RssPeak() as rss:
+        frame4, t_enc4 = host_ms(lambda: plz4.compress(main_data, **opts4))
+        back4, t_dec4 = host_ms(lambda: plz4.decompress(frame4,
+                                                        backend="device"))
+        torch.cuda.synchronize()
+    k2b_launches, k5_launches = encode.window_launches, decode.record_launches
+    other4 = (encode.launches, decode.launches, decode.dict_launches)
+    valve = large.host_decodes
+    peak4 = torch.cuda.max_memory_allocated()
+    check(back4 == main_data, "256 MiB device round trip at 4 MiB blocks is "
+                              "intact")
+    n_big = len(main_data) // BIG
+    check(k2b_launches == n_big // 2,
+          f"K2b ran once per 2-block writer batch ({k2b_launches})")
+    read_batch4 = plz4.Options(**opts4).pending_budget()
+    check(k5_launches == math.ceil(n_big / read_batch4),
+          f"K5 ran once per {read_batch4}-block reader batch ({k5_launches})")
+    check(other4 == (0, 0, 0), f"no K2a/K1/K3 launch at 4 MiB ({other4})")
+    check(valve == 0, "no block took the host valve")
+    check(plz4.decompress(frame4, backend="native") == main_data,
+          "4 MiB device frame decodes with backend=native")
+    native4 = plz4.compress(main_data, backend="native")
+    check(plz4.decompress(native4, backend="device") == main_data,
+          "native 4 MiB frame decodes with backend=device")
+    # K5 at the reader's batch shape: read_batch4 blocks of the main data
+    n_k5 = min(read_batch4, n_big)
+    k5_main = record_batch(
+        [split(native.compress(main_data[i * BIG:(i + 1) * BIG], level=1))
+         for i in range(n_k5)], [None] * n_k5)
+    (k5_dev, _, _, k5_plain_ms, k5m_err) = records_both(
+        k5_main, f"a reader batch of {n_k5} native 4 MiB blocks")
+    k5_err = max(k5_err, k5m_err)
+    k5_ms = cuda_ms(lambda: decode.decode_records_batch(*k5_dev), 3)
+    k5_out = int(k5_main[1][:, :, 6].sum())
+    k5_bound = bound_ms(
+        int(k5_main[1][:, :, 0].sum()) + k5_main[1].numel() * 4
+        + k5_main[2].numel() + k5_out + 5 * k5_main[1].shape[0]
+        * k5_main[1].shape[1], OPS_PER_BYTE * k5_out)
+    del k5_dev
+    gb = len(main_data) / 1e9
+    print(f"main path 4 MiB [{smi}]: encode {gb / (t_enc4 / 1e3):.3f} GB/s, "
+          f"decode {gb / (t_dec4 / 1e3):.3f} GB/s through Writer/Reader; "
+          f"frame ratio {len(main_data) / len(frame4):.4f}; peak device "
+          f"memory {peak4 / 2**20:.1f} MiB; peak host RSS {rss.peak} MiB "
+          f"({rss.start} before it); "
+          f"ms per batch: K2b {encw_ms:.3f} ({2 * CHUNKS} chunk rows, bound "
+          f"{encw_bound[0]:.4f}), K5 {k5_ms:.3f} ({k5_main[1].shape[0]} "
+          f"blocks, bound {k5_bound[0]:.4f}), K3 {k3_ms:.3f} ({ROWS} rows, "
+          f"bound {k3_bound[0]:.4f})")
+    # kernel time over wall time: each launch timed alone at the main
+    # path's shapes, times the main path's launches
+    print(f"kernel share of wall at 4 MiB: encode K2b {k2b_launches} x "
+          f"{encw_ms:.3f} ms = {100 * k2b_launches * encw_ms / t_enc4:.1f}%"
+          f" of {t_enc4:.1f} ms; decode K5 {k5_launches} x {k5_ms:.3f} ms "
+          f"= {100 * k5_launches * k5_ms / t_dec4:.1f}% of {t_dec4:.1f} ms")
+
+    # ---- 10. dictionary and linked frames at 64 KiB blocks ---------------
+    win_data = main_data[: 32 << 20]
+    n_win = len(win_data) // BLOCK
+    read_batch = plz4.Options(**opts).pending_budget()
+    k3_launches = 0
+    for name, extra in (("dictionary", dict(dictionary=dict64)),
+                        ("linked", dict(block_linked=True))):
+        o = opts | extra
+        d = extra.get("dictionary")
+        encode.launches = encode.window_launches = 0
+        decode.launches = decode.dict_launches = decode.record_launches = 0
+        f = plz4.compress(win_data, **o)
+        back = plz4.decompress(f, backend="device", dictionary=d)
+        torch.cuda.synchronize()
+        counts = (encode.window_launches, encode.launches,
+                  decode.dict_launches, decode.launches)
+        check(back == win_data, f"32 MiB {name} frame device round trip")
+        check(counts[:2] == (math.ceil(n_win / ROWS), 0),
+              f"{name}: K2b ran once per writer batch ({counts})")
+        if d is not None:
+            k3_launches = counts[2]
+            check(counts[2:] == (math.ceil(n_win / read_batch), 0),
+                  f"{name}: K3 ran once per reader batch ({counts})")
+        else:  # linked frames decode serially on the host, as in plz4_tpu
+            check(counts[2:] == (0, 0), f"{name}: no decode launch")
+        check(plz4.decompress(f, backend="native", dictionary=d) == win_data,
+              f"{name} device frame decodes with backend=native")
+        head = win_data[: 8 << 20]
+        check(plz4.compress(head, **o) == plz4.compress(head, device="cpu",
+                                                        **o),
+              f"{name}: the first 8 MiB frame equals the device=cpu frame")
+
     kernels = [
-        dict(name="K2 greedy block encode", route="cuda",
+        dict(name="K2a greedy block encode", route="cuda",
              source="plz4_tpu_torch/csrc/lz4_encode.cu",
              replaces="plz4_tpu/ops/encode_pallas.py:397",
              launches=enc_launches, max_abs_err=max(enc_err, x_err),
@@ -307,6 +622,31 @@ def main() -> int:
              launches=dec_launches, max_abs_err=max(dec_err, c_err),
              ms=dec_ms, plain_ms=dec_plain_ms, bound_ms=dec_bound[0],
              bound_by=dec_bound[1], library_ms=None),
+        dict(name="K2b window-prefix greedy encode", route="cuda",
+             source="plz4_tpu_torch/csrc/lz4_encode_window.cu",
+             replaces="plz4_tpu/ops/encode_pallas.py:862",
+             launches=k2b_launches, max_abs_err=max(encw_err, ww_err),
+             ms=encw_ms, plain_ms=encw_plain_ms, bound_ms=encw_bound[0],
+             bound_by=encw_bound[1], library_ms=None),
+        dict(name="K3 dictionary block decode", route="cuda",
+             source="plz4_tpu_torch/csrc/lz4_decode_window.cu",
+             replaces="plz4_tpu/ops/decode_pallas.py:326",
+             launches=k3_launches, max_abs_err=max(k3_err, x3_err),
+             ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound[0],
+             bound_by=k3_bound[1], library_ms=None),
+        dict(name="K5 carry-record decode", route="cuda",
+             source="plz4_tpu_torch/csrc/lz4_decode_window.cu",
+             replaces="plz4_tpu/ops/decode_pallas.py:784",
+             launches=k5_launches, max_abs_err=max(k5_err, k5c_err),
+             ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound[0],
+             bound_by=k5_bound[1], library_ms=None),
+        # K6c computes K5's function; the port runs both as K5's kernel
+        dict(name="K6c carry-record decode (K5's CUDA kernel)", route="cuda",
+             source="plz4_tpu_torch/csrc/lz4_decode_window.cu",
+             replaces="plz4_tpu/ops/decode_pallas.py:731",
+             launches=k5_launches, max_abs_err=max(k5_err, k5c_err),
+             ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound[0],
+             bound_by=k5_bound[1], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

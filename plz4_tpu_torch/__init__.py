@@ -7,9 +7,10 @@ access, a raw block API) with the device block codec running as
 hand-written CUDA kernels on an NVIDIA Hopper GPU (csrc/, bound by
 ops/_build.py) and a native C++ host codec for the serial/sync paths.
 
-backend="device" covers 64 KiB independent blocks at levels 1-2 without
-block checksums; the other device options raise NotImplementedError (see
-opts.Options.check_device).
+backend="device" covers levels 1-2 at every block size (blocks over 64 KiB
+as 64 KiB chunks and records), dictionaries and linked blocks, without
+block checksums; levels above 2 and block checksums raise
+NotImplementedError (see opts.Options.check_device).
 """
 
 def _tune_allocator() -> None:

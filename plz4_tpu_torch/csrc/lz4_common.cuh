@@ -1,8 +1,9 @@
 // Shared definitions of the LZ4 block kernels. The per-row bodies in
-// lz4_encode.cuh / lz4_decode.cuh are __host__ __device__: nvcc builds them
-// into the CUDA kernels (lz4_encode.cu, lz4_decode.cu) and g++ builds the
-// same source into a host library (lz4_host.cpp) that the CPU tests hold
-// against the JAX package's Pallas kernels in interpret mode.
+// lz4_encode.cuh, lz4_decode.cuh and lz4_decode_window.cuh are
+// __host__ __device__: nvcc builds them into the CUDA kernels (csrc/*.cu)
+// and g++ builds the same source into a host library (lz4_host.cpp) that
+// the CPU tests hold against the JAX package's Pallas kernels in interpret
+// mode.
 #pragma once
 
 #include <stdint.h>
@@ -21,3 +22,4 @@
 #define LZ4T_SKIP_STRENGTH 6
 
 LZ4T_HD int lz4t_min(int a, int b) { return a < b ? a : b; }
+LZ4T_HD int lz4t_max(int a, int b) { return a > b ? a : b; }

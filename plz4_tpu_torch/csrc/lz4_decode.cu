@@ -57,8 +57,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // comp (B, C) u8 with C % 4 == 0, clens (B,) i32 -> out (B, out_cap) u8
 // (bytes past n_out undefined), n_out (B,) i32, ok (B,) bool.
-// Returns a cudaError_t. Every kernel library exports this same C
-// interface (ops/_build.py).
+// Returns a cudaError_t (ops/_build.py holds each library's C
+// signature).
 extern "C" int lz4t_launch(const void* comp, const void* clens, void* out,
                            void* n_out, void* ok, int B, int C, int out_cap,
                            void* stream) {

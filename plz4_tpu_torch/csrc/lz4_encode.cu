@@ -1,9 +1,10 @@
-// K2: greedy LZ4 block encode, one thread block per row.
+// K2a: greedy LZ4 block encode, one thread block per row.
 //
 // Replaces the Pallas TPU kernel plz4_tpu/ops/encode_pallas.py:
-// _encode_kernel_bw in greedy mode (reached through _encode_call_bw,
-// encode_block_pallas and encode_batch_pallas). The row body is
-// lz4t_encode_row (lz4_encode.cuh), byte-exact with that kernel.
+// _encode_kernel_bw in greedy mode without a window (reached through
+// _encode_call_bw, encode_block_pallas and encode_batch_pallas). The row
+// body is lz4t_encode_row (lz4_encode.cuh, base = first = 0, with the
+// value table), byte-exact with that kernel.
 //
 // What bounds it on this card: the parse is one serial, data-dependent
 // chain (hash, table probe, compare, extend) per row, so it is bound by the
@@ -44,8 +45,9 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (threadIdx.x == 0) {
     int total, okv;
-    lz4t_encode_row(reinterpret_cast<const uint8_t*>(roww), N + 8, lens[b],
-                    out + (size_t)b * CAP, CAP, tab, vtab, &total, &okv);
+    lz4t_encode_row<true>(reinterpret_cast<const uint8_t*>(roww), N + 8, 0, 0,
+                          lens[b], out + (size_t)b * CAP, CAP, tab, vtab,
+                          &total, &okv);
     totals[b] = total;
     ok[b] = okv != 0;
   }
@@ -54,8 +56,8 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // data (B, N) u8 with N % 4 == 0, lens (B,) i32 -> out (B, CAP) u8,
-// totals (B,) i32, ok (B,) bool. Returns a cudaError_t. Every kernel
-// library exports this same C interface (ops/_build.py).
+// totals (B,) i32, ok (B,) bool. Returns a cudaError_t (ops/_build.py
+// holds each library's C signature).
 extern "C" int lz4t_launch(const void* data, const void* lens, void* out,
                            void* totals, void* ok, int B, int N, int CAP,
                            void* stream) {

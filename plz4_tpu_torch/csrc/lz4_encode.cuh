@@ -1,22 +1,34 @@
 // Greedy LZ4 block encode of one row: the semantics of the Pallas kernel
 // plz4_tpu/ops/encode_pallas.py:_encode_kernel_bw in greedy mode
-// (mid=False, meta = [n, 0, 0], so base = first = 0 and no window).
-// Every decision that shapes the output bytes follows that kernel:
-//   * hash (u32 * 2654435761) >> 18, a 2^14 position table tab[h] = pos+1
-//     and a value table vtab[h] = u32; a candidate is valid when it exists,
-//     lies within 65535 bytes and its stored word equals the current one
-//     (the bytes themselves are not compared again);
+// (mid=False). The row is [window | block | 8 zero bytes]: the block is
+// [base, base + n) and the usable window [first, base), meta = [n, base,
+// first] in the Pallas kernel. K2a (plain blocks) is base = first = 0; K2b
+// (linked and dictionary blocks, large-block chunks) has a window of D
+// bytes, base = D and first = D - dlen. Every decision that shapes the
+// output bytes follows that kernel:
+//   * hash (u32 * 2654435761) >> 18 and a 2^14 position table
+//     tab[h] = pos+1; a candidate is valid when it exists, lies at or above
+//     first and within 65535 bytes, and its stored word equals the current
+//     one (the bytes themselves are not compared again);
+//   * the window preload (lz4t_window_preload) seeds every wstride-th
+//     window position before the parse;
 //   * skip step cnt >> 6, cnt restarting at 0 for every search;
-//   * backward extension while ip > anchor and the bytes agree, forward
-//     extension from 4 + back up to matchlimit = n - 5;
+//   * backward extension while ip > anchor, cand > first and the bytes
+//     agree, forward extension from 4 + back up to matchlimit = end - 5;
 //   * after each match only position nip - 2 is inserted;
 //   * the room guard op + lit + (lit>>8) + (mlen>>8) + 32 <= OT (else the
 //     emit is skipped and op = OT), overflow at op > OT - 16, the final
 //     literals guard, and ok = (op < n) && !overflow.
-// OT is the output row width CAP, computed from the input row width N.
+// OT is the output row width CAP, computed from the block width N alone.
 // The TPU kernel's 8-wide wild literal copies only write bytes past the
 // stream that later emits overwrite; the copies here are exact, which
 // gives the same bytes [0, total).
+//
+// The stored word of a slot. The Pallas kernel keeps it in a second table
+// (vtab[h] = u beside tab[h] = p + 1). Every stored p lies below the clip
+// (p <= mflimit, p <= nip - 2 or p < base) and the row never changes, so
+// vtab[h] always equals the word at tab[h] - 1: kVtab = false re-reads it
+// there instead, which halves the tables' shared memory (K2b needs that).
 #pragma once
 
 #include "lz4_common.cuh"
@@ -29,6 +41,16 @@ LZ4T_HD uint32_t lz4t_rd32(const uint8_t* c, int p) {
 
 LZ4T_HD uint32_t lz4t_hash(uint32_t u) {
   return (u * LZ4T_HASH_MUL) >> (32 - LZ4T_HASH_LOG);
+}
+
+// The window preload (the reference's LZ4_loadDict analog): positions
+// first, first + wstride, ... below base enter the table in order, so each
+// slot ends up holding the largest of its positions. The CUDA kernel
+// computes the same table with atomicMax over parallel threads.
+LZ4T_HD void lz4t_window_preload(const uint8_t* c, int base, int first,
+                                 int wstride, uint32_t* tab) {
+  for (int p = first; p < base; p += wstride)
+    tab[lz4t_hash(lz4t_rd32(c, p))] = (uint32_t)(p + 1);
 }
 
 LZ4T_HD int lz4t_emit_len_ext(uint8_t* o, int p, int v) {
@@ -66,17 +88,19 @@ LZ4T_HD int lz4t_emit_sequence(const uint8_t* c, uint8_t* o, int OT, int op,
   return q;
 }
 
-// c: the row, DT = N + 8 bytes (n data bytes, zero after them); o: OT = CAP
-// output bytes; tab, vtab: 2^14 entries each, zeroed by the caller.
-LZ4T_HD void lz4t_encode_row(const uint8_t* c, int DT, int n, uint8_t* o,
-                             int OT, uint32_t* tab, uint32_t* vtab,
-                             int* total_out, int* ok_out) {
-  const int end = n;
+// c: the row, DT = base + N + 8 bytes (n block bytes at base, zero after
+// the block's N); o: OT = CAP output bytes; tab (and vtab when kVtab):
+// 2^14 entries, zeroed and then preloaded with the window by the caller.
+template <bool kVtab>
+LZ4T_HD void lz4t_encode_row(const uint8_t* c, int DT, int base, int first,
+                             int n, uint8_t* o, int OT, uint32_t* tab,
+                             uint32_t* vtab, int* total_out, int* ok_out) {
+  const int end = base + n;
   const int mflimit = end - 12;
   const int matchlimit = end - 5;
   const int out_limit = OT - 16;
   const int clip = DT - 4;
-  int ip = 0, anchor = 0, op = 0;
+  int ip = base, anchor = base, op = 0;
   int overflow = n < 0;
   while (ip <= mflimit && !overflow) {
     // search: the next position whose hash slot holds a valid candidate
@@ -85,10 +109,16 @@ LZ4T_HD void lz4t_encode_row(const uint8_t* c, int DT, int n, uint8_t* o,
     while (!found && sip <= mflimit) {
       const uint32_t h = lz4t_hash(u);
       const int cd = (int)tab[h] - 1;
-      const uint32_t cval = vtab[h];
+      const int live = cd >= first;
+      uint32_t cval = 0;
+      if (kVtab) {
+        cval = vtab[h];
+        vtab[h] = u;
+      } else if (live) {
+        cval = lz4t_rd32(c, cd);
+      }
       tab[h] = (uint32_t)(sip + 1);
-      vtab[h] = u;
-      found = cd >= 0 && sip - cd <= LZ4T_MAX_DISTANCE && cval == u;
+      found = live && sip - cd <= LZ4T_MAX_DISTANCE && cval == u;
       cand = cd;
       if (!found) {
         sip += 1 + (cnt >> LZ4T_SKIP_STRENGTH);
@@ -101,7 +131,7 @@ LZ4T_HD void lz4t_encode_row(const uint8_t* c, int DT, int n, uint8_t* o,
       continue;
     }
     int mip = sip, mpos = cand, back = 0;
-    while (mip > anchor && mpos > 0 && c[mip - 1] == c[mpos - 1]) {
+    while (mip > anchor && mpos > first && c[mip - 1] == c[mpos - 1]) {
       mip--;
       mpos--;
       back++;
@@ -112,7 +142,7 @@ LZ4T_HD void lz4t_encode_row(const uint8_t* c, int DT, int n, uint8_t* o,
     const int nip = mip + mlen;
     const uint32_t u2 = lz4t_rd32(c, lz4t_min(nip - 2, clip));
     const uint32_t h2 = lz4t_hash(u2);
-    vtab[h2] = u2;
+    if (kVtab) vtab[h2] = u2;
     tab[h2] = (uint32_t)(nip - 1);
     ip = nip;
     anchor = nip;

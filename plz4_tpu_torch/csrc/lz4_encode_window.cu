@@ -1,0 +1,100 @@
+// K2b: greedy LZ4 block encode after a window prefix, one thread block per
+// row.
+//
+// Replaces the Pallas TPU kernel plz4_tpu/ops/encode_pallas.py:
+// _encode_kernel_bw in window-prefix mode (reached through
+// encode_block_pallas_dict and encode_batch_pallas_dict): linked and
+// dictionary blocks (wstride 1) and the 64 KiB chunks of large blocks
+// (wstride 2). The row body is lz4t_encode_row (lz4_encode.cuh) without the
+// value table, byte-exact with that kernel.
+//
+// Rows come in groups of K: row r takes as its window row r - 1 when
+// r % K > 0 (the previous chunk of the same large block, read in place:
+// no second copy of the batch), and win[r / K] when r % K == 0 (a frame
+// dictionary, the linked predecessor's tail, or nothing). K = 1 gives
+// every row its own window.
+//
+// What bounds it on this card: as K2a, the parse is one serial,
+// data-dependent chain per row (hash, table probe, compare, extend), bound
+// by the latency of one thread's dependent shared-memory loads; a batch of
+// 128 chunk rows moves ~25 MB (~7.5 us of HBM time).
+// What the design does about it: the row [window | block | 8 zero bytes]
+// and the position table live in shared memory (2^14 x 4 B + 131,080 B =
+// 196,616 B at D = N = 64 KiB; the value table is dropped, see
+// lz4_encode.cuh). The window preload, the reference's dominant fixed cost
+// per chunk, is spread over the block's 256 threads: in-order insertion
+// leaves each slot holding its largest position, so atomicMax gives the
+// same table. Thread 0 then runs the parse.
+#include <cuda_runtime.h>
+
+#include "lz4_encode.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTab = 1 << LZ4T_HASH_LOG;
+
+__global__ void __launch_bounds__(kThreads)
+    lz4t_encode_window_kernel(const uint8_t* __restrict__ data,
+                              const int32_t* __restrict__ lens,
+                              const uint8_t* __restrict__ win,
+                              const int32_t* __restrict__ wlens,
+                              uint8_t* __restrict__ out,
+                              int32_t* __restrict__ totals,
+                              bool* __restrict__ ok, int N, int D, int K,
+                              int wstride, int CAP) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* tab = smem;
+  uint32_t* roww = smem + kTab;  // [window D | block N | 8 zero bytes]
+  const int r = blockIdx.x;
+  const uint32_t* wsrc = reinterpret_cast<const uint32_t*>(
+      r % K ? data + (size_t)(r - 1) * N : win + (size_t)(r / K) * D);
+  const uint32_t* bsrc =
+      reinterpret_cast<const uint32_t*>(data + (size_t)r * N);
+  for (int i = threadIdx.x; i < kTab; i += blockDim.x) tab[i] = 0;
+  for (int i = threadIdx.x; i < D / 4; i += blockDim.x) roww[i] = wsrc[i];
+  for (int i = threadIdx.x; i < N / 4; i += blockDim.x)
+    roww[D / 4 + i] = bsrc[i];
+  if (threadIdx.x < 2) roww[(D + N) / 4 + threadIdx.x] = 0;
+  __syncthreads();
+  const uint8_t* c = reinterpret_cast<const uint8_t*>(roww);
+  const int first = D - lz4t_min(lz4t_max(wlens[r], 0), D);
+  for (int p = first + threadIdx.x * wstride; p < D;
+       p += kThreads * wstride)
+    atomicMax(&tab[lz4t_hash(lz4t_rd32(c, p))], (uint32_t)(p + 1));
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total, okv;
+    lz4t_encode_row<false>(c, D + N + 8, D, first, lens[r],
+                           out + (size_t)r * CAP, CAP, tab, nullptr, &total,
+                           &okv);
+    totals[r] = total;
+    ok[r] = okv != 0;
+  }
+}
+
+}  // namespace
+
+// data (R, N) u8, lens (R,) i32, win (R / K, D) u8 right-aligned windows,
+// wlens (R,) i32 usable window bytes per row -> out (R, CAP) u8, totals
+// (R,) i32, ok (R,) bool. N % 4 == D % 4 == 0, R % K == 0, D == N when
+// K > 1, wstride >= 1. Returns a cudaError_t.
+extern "C" int lz4t_launch(const void* data, const void* lens, const void* win,
+                           const void* wlens, void* out, void* totals,
+                           void* ok, int R, int N, int D, int K, int wstride,
+                           int CAP, void* stream) {
+  const int smem = kTab * 4 + D + N + 8;
+  cudaError_t e = cudaFuncSetAttribute(
+      lz4t_encode_window_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  lz4t_encode_window_kernel<<<R, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)data, (const int32_t*)lens, (const uint8_t*)win,
+      (const int32_t*)wlens, (uint8_t*)out, (int32_t*)totals, (bool*)ok, N,
+      D, K, wstride, CAP);
+  return cudaGetLastError();
+}
+
+extern "C" const char* lz4t_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}

@@ -23,7 +23,24 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-KERNELS = ("lz4_encode", "lz4_decode")
+# kernel library -> {C entry point: (device pointers, ints)}; every entry
+# point also takes the CUDA stream last and returns a cudaError_t
+KERNELS = {
+    "lz4_encode": {"lz4t_launch": (5, 3)},            # K2a
+    "lz4_decode": {"lz4t_launch": (5, 3)},            # K1
+    "lz4_encode_window": {"lz4t_launch": (7, 6)},     # K2b
+    "lz4_decode_window": {"lz4t_launch_dict": (6, 5),  # K3
+                          "lz4t_launch_records": (6, 4)},  # K5 (and K6c)
+}
+# host build of the row bodies (csrc/lz4_host.cpp): entry point -> (pointers,
+# ints); the CPU tests call these
+HOST_FNS = {
+    "lz4t_host_encode": (5, 3),
+    "lz4t_host_encode_window": (7, 6),
+    "lz4t_host_decode": (5, 3),
+    "lz4t_host_decode_dict": (6, 5),
+    "lz4t_host_decode_records": (6, 4),
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -101,10 +118,11 @@ def load(name: str) -> ctypes.CDLL:
             if job is not None:
                 _finish(job)
             lib = ctypes.CDLL(_so_path(name))
-            # int lz4t_launch(5 device pointers, 3 ints, stream)
-            lib.lz4t_launch.restype = ctypes.c_int
-            lib.lz4t_launch.argtypes = [ctypes.c_void_p] * 5 + [
-                ctypes.c_int] * 3 + [ctypes.c_void_p]
+            for fn, (n_ptr, n_int) in KERNELS[name].items():
+                f = getattr(lib, fn)
+                f.restype = ctypes.c_int
+                f.argtypes = ([ctypes.c_void_p] * n_ptr
+                              + [ctypes.c_int] * n_int + [ctypes.c_void_p])
             lib.lz4t_error_string.restype = ctypes.c_char_p
             lib.lz4t_error_string.argtypes = [ctypes.c_int]
             _libs[name] = lib
@@ -131,21 +149,23 @@ def load_host() -> ctypes.CDLL:
                                capture_output=True)
                 os.replace(tmp, so)
             lib = ctypes.CDLL(so)
-            for fn in (lib.lz4t_host_encode, lib.lz4t_host_decode):
-                fn.restype = None
-                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+            for fn, (n_ptr, n_int) in HOST_FNS.items():
+                f = getattr(lib, fn)
+                f.restype = None
+                f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
             _libs["host"] = lib
     return _libs["host"]
 
 
-def launch(name: str, ptrs, ints, stream: int) -> None:
-    """Call kernel library `name`'s lz4t_launch; raise on a non-zero
+def launch(name: str, ptrs, ints, stream: int,
+           fn: str = "lz4t_launch") -> None:
+    """Call entry point `fn` of kernel library `name`; raise on a non-zero
     cudaError_t (a refused launch never runs, and a later synchronize
     would not report it)."""
     lib = load(name)
-    rc = lib.lz4t_launch(*ptrs, *ints, stream)
+    rc = getattr(lib, fn)(*ptrs, *ints, stream)
     if rc != 0:
         msg = lib.lz4t_error_string(rc)
         raise RuntimeError(
-            f"{name} launch failed: cudaError {rc} "
+            f"{name}.{fn} launch failed: cudaError {rc} "
             f"({msg.decode(errors='replace')})")

@@ -1,12 +1,14 @@
-"""Greedy LZ4 block encode (device levels 1-2): kernel K2 and its plain
-version.
+"""Greedy LZ4 block encode (device levels 1-2): kernels K2a and K2b and
+their plain version.
 
-encode_batch runs the CUDA kernel csrc/lz4_encode.cu on CUDA tensors and
-the plain version on CPU tensors. Both are byte-exact with the JAX
-package's Pallas kernel (encode_pallas.encode_batch_pallas): the same ok
-and total per row, and the same stream bytes [0, total) where ok holds.
-An incompressible row comes back with ok False, and the frame layer stores
-it raw.
+encode_batch (K2a, plain rows) and encode_batch_window (K2b, rows after a
+window prefix: linked and dictionary blocks, large-block chunks) run the
+CUDA kernels csrc/lz4_encode.cu and csrc/lz4_encode_window.cu on CUDA
+tensors and the plain version on CPU tensors. All are byte-exact with the
+JAX package's Pallas kernel (encode_pallas.encode_batch_pallas and
+encode_batch_pallas_dict): the same ok and total per row, and the same
+stream bytes [0, total) where ok holds. An incompressible row comes back
+with ok False, and the frame layer stores it raw.
 """
 
 from __future__ import annotations
@@ -21,9 +23,11 @@ HASH_LOG = 14
 HASH_MUL = 2654435761
 MAX_DISTANCE = 65535
 SKIP_STRENGTH = 6
-MAX_ROW = 65536  # 64 KiB blocks; wider rows are the large-block path
+MAX_ROW = 65536  # 64 KiB blocks; wider blocks are 64 KiB chunks (large.py)
+MAX_WINDOW = 65536  # the LZ4 match window
 
-launches = 0  # kernel launches by encode_batch
+launches = 0  # K2a launches by encode_batch
+window_launches = 0  # K2b launches by encode_batch_window
 
 
 def out_width(N: int) -> int:
@@ -35,7 +39,7 @@ def out_width(N: int) -> int:
 def encode_batch(data: torch.Tensor, lens: torch.Tensor):
     """data (B, N) uint8 zero-padded rows with N % 4 == 0 and N <= 64 KiB,
     lens (B,) int32 -> (out (B, CAP) uint8, totals (B,) int32, ok (B,)
-    bool). On CUDA tensors it launches K2 on the current stream without
+    bool). On CUDA tensors it launches K2a on the current stream without
     synchronising; on CPU tensors it runs the plain version."""
     global launches
     if data.dim() != 2 or data.dtype != torch.uint8:
@@ -66,16 +70,76 @@ def encode_batch(data: torch.Tensor, lens: torch.Tensor):
     return out, totals, ok
 
 
+def encode_batch_window(data: torch.Tensor, lens: torch.Tensor,
+                        windows: torch.Tensor, wlens: torch.Tensor,
+                        wstride: int = 1, chunks: int = 1):
+    """Encode rows after a right-aligned window prefix.
+
+    data (R, N) uint8 zero-padded rows, lens (R,) int32; windows (R // chunks,
+    D) uint8 right-aligned windows, wlens (R,) int32 the usable window bytes
+    of each row; every wstride-th window position seeds the match table.
+    Rows come in groups of `chunks` consecutive 64 KiB chunks of one large
+    block: a row whose index is not a multiple of `chunks` takes the row
+    before it as its window (read in place; needs D == N), the first row of
+    a group takes windows[r // chunks]. chunks=1 gives each row its own
+    window. Returns (out (R, CAP) uint8, totals (R,) int32, ok (R,) bool).
+    On CUDA tensors it launches K2b on the current stream without
+    synchronising; on CPU tensors it runs the plain version."""
+    global window_launches
+    if data.dim() != 2 or data.dtype != torch.uint8:
+        raise ValueError("data must be a (R, N) uint8 tensor")
+    R, N = data.shape
+    if N % 4 or N > MAX_ROW:
+        raise ValueError(f"row width {N}: needs N % 4 == 0 and N <= {MAX_ROW}")
+    if windows.dim() != 2 or windows.dtype != torch.uint8:
+        raise ValueError("windows must be a (G, D) uint8 tensor")
+    G, D = windows.shape
+    if (chunks < 1 or G * chunks != R or D % 4 or D > MAX_WINDOW
+            or (chunks > 1 and D != N) or wstride < 1):
+        raise ValueError(f"windows {tuple(windows.shape)} for {R} rows of "
+                         f"{N} bytes in groups of {chunks}, wstride "
+                         f"{wstride}: need R == G * chunks, D % 4 == 0, "
+                         f"D <= {MAX_WINDOW}, D == N when chunks > 1")
+    for name, t in (("lens", lens), ("wlens", wlens)):
+        if (t.shape != (R,) or t.dtype != torch.int32
+                or t.device != data.device):
+            raise ValueError(f"{name} must be a (R,) int32 tensor on data's "
+                             "device")
+    if windows.device != data.device:
+        raise ValueError("windows must be on data's device")
+    if data.device.type == "cpu":
+        return encode_batch_window_plain(data, lens, windows, wlens, wstride,
+                                         chunks)
+    if data.device.type != "cuda":
+        raise ValueError(f"unsupported device {data.device}")
+    data, lens = data.contiguous(), lens.contiguous()
+    windows, wlens = windows.contiguous(), wlens.contiguous()
+    CAP = out_width(N)
+    out = torch.empty((R, CAP), dtype=torch.uint8, device=data.device)
+    totals = torch.empty((R,), dtype=torch.int32, device=data.device)
+    ok = torch.empty((R,), dtype=torch.bool, device=data.device)
+    if R:
+        with torch.cuda.device(data.device):
+            stream = torch.cuda.current_stream(data.device).cuda_stream
+            _build.launch("lz4_encode_window",
+                          (data.data_ptr(), lens.data_ptr(),
+                           windows.data_ptr(), wlens.data_ptr(),
+                           out.data_ptr(), totals.data_ptr(), ok.data_ptr()),
+                          (R, N, D, chunks, wstride, CAP), stream)
+        window_launches += 1
+    return out, totals, ok
+
+
 # ---------------------------------------------------------------------------
 # plain version: the same parse over Python bytes, one row at a time
 # ---------------------------------------------------------------------------
 
-def _words(row: bytes) -> tuple[list[int], list[int]]:
+def _words(row: bytes) -> tuple[np.ndarray, np.ndarray]:
     """Little-endian u32 at every byte of the row, and its hash."""
     a = np.frombuffer(row + b"\0\0\0", dtype=np.uint8).astype(np.uint64)
     v = a[:-3] | (a[1:-2] << 8) | (a[2:-1] << 16) | (a[3:] << 24)
     h = ((v * HASH_MUL) & 0xFFFFFFFF) >> (32 - HASH_LOG)
-    return v.tolist(), h.tolist()
+    return v, h
 
 
 def _emit_len_ext(o: bytearray, v: int) -> None:
@@ -117,18 +181,29 @@ def _common(c: bytes, a: int, b: int, limit: int) -> int:
     return n
 
 
-def encode_row_plain(row: bytes, n: int, N: int) -> tuple[bytes, int, bool]:
-    """One row of width N (n data bytes): (stream, total, ok). The stream
-    is meaningful where ok holds."""
+def encode_row_plain(row: bytes, n: int, N: int, window: bytes = b"",
+                     wlen: int = 0, wstride: int = 1
+                     ) -> tuple[bytes, int, bool]:
+    """One row of width N (n data bytes) after a right-aligned window of
+    len(window) bytes, the last wlen of them usable: (stream, total, ok).
+    The stream is meaningful where ok holds. The window preload keeps the
+    largest of the positions that share a slot, which is what inserting
+    them in order leaves (csrc/lz4_encode.cuh)."""
     OT = out_width(N)
-    c = row[:N] + bytes(8)
-    clip = N + 8 - 4
+    base = len(window)
+    first = base - min(max(wlen, 0), base)
+    c = window + row[:N] + bytes(8)
+    clip = len(c) - 4
     words, hashes = _words(c)
-    tab = [0] * (1 << HASH_LOG)
-    vtab = [0] * (1 << HASH_LOG)
-    mflimit, matchlimit = n - 12, n - 5
+    tab = np.zeros(1 << HASH_LOG, dtype=np.int64)
+    ps = np.arange(first, base, wstride)
+    np.maximum.at(tab, hashes[ps], ps + 1)
+    tab = tab.tolist()
+    words, hashes = words.tolist(), hashes.tolist()
+    end = base + n
+    mflimit, matchlimit = end - 12, end - 5
     o = bytearray()
-    ip = anchor = 0
+    ip = anchor = base
     overflow = n < 0
     while ip <= mflimit and not overflow:
         sip, cnt, found, cand = ip, 0, False, 0
@@ -136,9 +211,10 @@ def encode_row_plain(row: bytes, n: int, N: int) -> tuple[bytes, int, bool]:
             p = min(sip, clip)
             u, h = words[p], hashes[p]
             cd = tab[h] - 1
-            found = cd >= 0 and sip - cd <= MAX_DISTANCE and vtab[h] == u
+            # the stored word of the slot is the word at cd (see
+            # csrc/lz4_encode.cuh)
+            found = cd >= first and sip - cd <= MAX_DISTANCE and words[cd] == u
             tab[h] = sip + 1
-            vtab[h] = u
             cand = cd
             if not found:
                 sip += 1 + (cnt >> SKIP_STRENGTH)
@@ -147,38 +223,55 @@ def encode_row_plain(row: bytes, n: int, N: int) -> tuple[bytes, int, bool]:
             ip = sip
             continue
         mip, mpos = sip, cand
-        while mip > anchor and mpos > 0 and c[mip - 1] == c[mpos - 1]:
+        while mip > anchor and mpos > first and c[mip - 1] == c[mpos - 1]:
             mip -= 1
             mpos -= 1
         mlen = sip - mip + 4
         mlen += _common(c, mip + mlen, mpos + mlen, matchlimit)
         roomy = _emit(c, o, OT, anchor, mip, mpos, mlen)
         nip = mip + mlen
-        p = min(nip - 2, clip)
-        vtab[hashes[p]] = words[p]
-        tab[hashes[p]] = nip - 1
+        tab[hashes[min(nip - 2, clip)]] = nip - 1
         ip = anchor = nip
         overflow = not roomy or len(o) > OT - 16
-    rest = n - anchor
+    rest = end - anchor
     if overflow or len(o) + rest + rest // 255 + 16 > OT \
-            or not _emit(c, o, OT, anchor, n, 0, 0):
+            or not _emit(c, o, OT, anchor, end, 0, 0):
         return b"", OT, False
     return bytes(o), len(o), len(o) < n
+
+
+def _fill(out, totals, ok, i: int, res) -> None:
+    s, total, good = res
+    out.numpy()[i, :len(s)] = np.frombuffer(s, dtype=np.uint8)
+    totals[i] = total
+    ok[i] = good
 
 
 def encode_batch_plain(data: torch.Tensor, lens: torch.Tensor):
     """Plain version of encode_batch (same signature and results) on CPU
     tensors."""
     B, N = data.shape
-    CAP = out_width(N)
     d = data.numpy()
-    out = torch.zeros((B, CAP), dtype=torch.uint8)
+    out = torch.zeros((B, out_width(N)), dtype=torch.uint8)
     totals = torch.zeros((B,), dtype=torch.int32)
     ok = torch.zeros((B,), dtype=torch.bool)
-    o = out.numpy()
     for i, n in enumerate(lens.tolist()):
-        s, total, good = encode_row_plain(d[i].tobytes(), n, N)
-        o[i, :len(s)] = np.frombuffer(s, dtype=np.uint8)
-        totals[i] = total
-        ok[i] = good
+        _fill(out, totals, ok, i, encode_row_plain(d[i].tobytes(), n, N))
+    return out, totals, ok
+
+
+def encode_batch_window_plain(data: torch.Tensor, lens: torch.Tensor,
+                              windows: torch.Tensor, wlens: torch.Tensor,
+                              wstride: int = 1, chunks: int = 1):
+    """Plain version of encode_batch_window (same signature and results) on
+    CPU tensors."""
+    R, N = data.shape
+    d, w = data.numpy(), windows.numpy()
+    out = torch.zeros((R, out_width(N)), dtype=torch.uint8)
+    totals = torch.zeros((R,), dtype=torch.int32)
+    ok = torch.zeros((R,), dtype=torch.bool)
+    for r, (n, wl) in enumerate(zip(lens.tolist(), wlens.tolist())):
+        win = d[r - 1] if r % chunks else w[r // chunks]
+        _fill(out, totals, ok, r, encode_row_plain(
+            d[r].tobytes(), n, N, win.tobytes(), wl, wstride))
     return out, totals, ok

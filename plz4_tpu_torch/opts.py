@@ -67,9 +67,10 @@ class Options:
     worker_pool: Optional[object] = None  # object with submit(fn) -> future
     # "native" | "device" | "auto". backend="device" runs the block codec
     # as CUDA kernels (parallel/batch.py). This port covers the greedy
-    # kernel: levels 1-2, 64 KiB independent blocks, no block checksums,
-    # no dictionary; check_device() refuses the rest with
-    # NotImplementedError naming the ROADMAP item that ports it.
+    # kernels: levels 1-2, every block size (blocks over 64 KiB as 64 KiB
+    # chunks and records), dictionaries and linked blocks, no block
+    # checksums; check_device() refuses the rest with NotImplementedError
+    # naming the ROADMAP item that ports it.
     backend: str = "auto"
     # write-side
     level: int = 1
@@ -115,10 +116,8 @@ class Options:
     def check_device(self, write: bool) -> None:
         """Refuse device options that no kernel of the port covers yet
         (ROADMAP Queue 1 item numbers) instead of running them silently
-        on the native codec."""
-        if self.dictionary is not None:
-            raise NotImplementedError(
-                "device backend: dictionaries (ROADMAP item 8)")
+        on the native codec. Every read option is covered; the batch layer
+        refuses frames with block checksums when it meets them."""
         if not write:
             return
         if self.level > 2:
@@ -128,10 +127,3 @@ class Options:
         if self.block_checksum:
             raise NotImplementedError(
                 "device backend: block checksums (ROADMAP item 7)")
-        if self.block_linked:
-            raise NotImplementedError(
-                "device backend: linked blocks (ROADMAP item 8)")
-        if self.block_size > 65536:
-            raise NotImplementedError(
-                f"device backend: {self.block_size}-byte blocks > 64 KiB "
-                "(ROADMAP item 11); pass block_size_idx=BLOCK_IDX_64KB")

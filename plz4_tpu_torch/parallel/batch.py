@@ -11,6 +11,10 @@ stream behind an event. Pending.result() is the only point that waits.
 The engine keeps two batches in flight, so a batch's staging buffers go
 back to the pool only at its result() or discard().
 
+Blocks over 64 KiB go to large.py as 64 KiB chunks (encode) and records
+(decode). Windows (dictionaries and linked predecessors) go to the
+window-prefix kernels: K2b to encode, K3 to decode.
+
 On device="cpu" the same layer runs the kernels' plain versions
 synchronously (tests).
 """
@@ -29,6 +33,7 @@ from ..ops import encode as enc_ops
 
 EMPTY_BLOCK = b"\x00"  # 1-byte literals-only token: decodes to b""
 MAX_BLOCK = enc_ops.MAX_ROW  # widest block the kernels take (64 KiB)
+WINDOW = enc_ops.MAX_WINDOW  # window row width D of the dictionary paths
 
 
 def _pow2(n: int) -> int:
@@ -72,10 +77,11 @@ class Pending:
     analog: the async reader/writer overlap of staging and compute,
     SURVEY §2.2)."""
 
-    def __init__(self, assemble, staging, event=None):
+    def __init__(self, assemble, staging, event=None, children=()):
         self._assemble = assemble
         self._staging = staging
         self._event = event  # CUDA event recorded after the batch's work
+        self._children = tuple(children)  # sub-batches assemble() consumes
         self._result = None
         self._done = False
 
@@ -91,7 +97,11 @@ class Pending:
     def discard(self):
         """Abort path: return staging buffers without assembling. Used by
         engine shutdown so in-flight batches do not orphan pool buffers;
-        the batch's copies may still be running, so it waits for them."""
+        the batch's copies may still be running, so it waits for them.
+        Child batches (the large-block paths split a batch) are discarded
+        too."""
+        for c in self._children:
+            c.discard()
         if not self._done:
             self._wait()
             self._release()
@@ -146,11 +156,14 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
     """Dispatch a device encode batch and return a Pending (the engine
     overlaps the next batch's staging with this one's compute).
 
+    dicts, when given, supplies a per-block window (linked mode / user
+    dictionary): blocks still encode in parallel because windows were
+    snapshotted before dispatch (reference: async/writer.go:412-437).
     Returns [(stored_bytes, uncompressed_flag)] in order, applying the
     incompressible-fallback contract per block. Levels 1-2 run the greedy
-    kernel; per-block windows (dicts), device block checksums, higher
-    levels and blocks over 64 KiB are not ported yet and raise
-    NotImplementedError.
+    kernels (K2a, or K2b with windows and for the chunks of blocks over
+    64 KiB); device block checksums and higher levels are not ported yet
+    and raise NotImplementedError.
     """
     if not blocks:
         return Pending(list, ())
@@ -158,18 +171,22 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
     for blk in blocks:
         if len(blk) > block_size:
             raise zerr.ErrSrcSize
-    if block_size > MAX_BLOCK:
-        raise NotImplementedError(
-            "device encode of blocks > 64 KiB (ROADMAP item 11)")
     if level > 2:
         raise NotImplementedError(
-            f"device encode at level {level} > 2 (ROADMAP items 9-10)")
-    if dicts is not None and any(d for d in dicts):
-        raise NotImplementedError(
-            "device encode with a window prefix (ROADMAP item 8)")
+            f"device encode at level {level} > 2, with or without a window "
+            "(ROADMAP items 9-10)")
     if with_checksums:
         raise NotImplementedError(
             "device block checksums (ROADMAP item 7)")
+    if block_size > MAX_BLOCK:
+        from . import large
+
+        if any(len(b) > large.CHUNK for b in blocks):
+            # 256 KiB-4 MiB blocks: encode as window-prefixed 64 KiB
+            # chunks in parallel, stitch into standard LZ4 blocks
+            return large.encode_large_begin(blocks, block_size, level=level,
+                                            dicts=dicts, device=device)
+        block_size = large.CHUNK  # all blocks fit one chunk row
     dev = resolve_device(device)
     pinned = dev.type == "cuda"
     B = _pow2(len(blocks))
@@ -183,7 +200,25 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
         a[i, len(blk):] = 0
         ln[i] = len(blk)
     a[len(blocks):] = 0
-    outs_h, event = _dispatch(enc_ops.encode_batch, (arr, lens), dev)
+    staging = [arr, lens]
+    if dicts is not None and any(d for d in dicts):
+        # right-aligned (B, 64 KiB) windows, each row's usable length in
+        # wlens: K2b with every window position seeded (wstride 1)
+        darr = _pool.take((B, WINDOW), torch.uint8, pinned)
+        dlens = _pool.take((B,), torch.int32, pinned)
+        da, dl = darr.numpy(), dlens.numpy()
+        da.fill(0)
+        dl.fill(0)
+        for i, d in enumerate(dicts):
+            if d:
+                d = d[-WINDOW:]
+                da[i, WINDOW - len(d):] = np.frombuffer(d, dtype=np.uint8)
+                dl[i] = len(d)
+        staging += [darr, dlens]
+        outs_h, event = _dispatch(enc_ops.encode_batch_window,
+                                  (arr, lens, darr, dlens), dev)
+    else:
+        outs_h, event = _dispatch(enc_ops.encode_batch, (arr, lens), dev)
     out, totals, compressible = outs_h
 
     def assemble():
@@ -200,7 +235,7 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
                 results.append((blk, True))
         return results
 
-    return Pending(assemble, [arr, lens, *outs_h], event=event)
+    return Pending(assemble, staging + list(outs_h), event=event)
 
 
 def decode_blocks_begin(stored: list[tuple[bytes, bool]], block_size: int,
@@ -211,20 +246,22 @@ def decode_blocks_begin(stored: list[tuple[bytes, bool]], block_size: int,
     blocks; Pending.result() yields the decoded bytes in order.
 
     Uncompressed blocks pass through (reference: async/reader.go:149-163
-    routes them around the workers). Dictionaries, block checksums and
-    blocks over 64 KiB are not ported yet and raise NotImplementedError.
+    routes them around the workers). Blocks over 64 KiB go to large.py;
+    with a frame dictionary the blocks decode through K3. Block checksums
+    are not ported yet and raise NotImplementedError.
     """
     if not stored:
         return Pending(list, ())
-    if block_size > MAX_BLOCK:
-        raise NotImplementedError(
-            "device decode of blocks > 64 KiB (ROADMAP item 11)")
-    if dict_:
-        raise NotImplementedError(
-            "device decode with a dictionary (ROADMAP item 8)")
     if checksums is not None:
         raise NotImplementedError(
             "device block checksums (ROADMAP item 7)")
+    if block_size > MAX_BLOCK:
+        from . import large
+
+        # large-BD frames: split each block at sequence boundaries; K5
+        # decodes the records of multi-record blocks in order
+        return large.decode_large_begin(stored, block_size, dict_=dict_,
+                                        device=device)
     comp_idx = [i for i, (_, unc) in enumerate(stored) if not unc]
     results: list[bytes | None] = [
         data if unc else None for (data, unc) in stored]
@@ -248,8 +285,22 @@ def decode_blocks_begin(stored: list[tuple[bytes, bool]], block_size: int,
         data = stored[i][0]
         a[j, : len(data)] = np.frombuffer(data, dtype=np.uint8)
         cl[j] = len(data)
-    outs_h, event = _dispatch(dec_ops.decode_batch, (arr, clens), dev,
-                              extra=(block_size,))
+    staging = [arr, clens]
+    if dict_:
+        # the dictionary right-aligned in one 64 KiB window row, shared by
+        # the batch (offsets reach at most 65535 bytes back, so the last
+        # 64 KiB is all of it that a block can use)
+        d = dict_[-WINDOW:]
+        dbuf = _pool.take((WINDOW,), torch.uint8, pinned)
+        db = dbuf.numpy()
+        db[: WINDOW - len(d)] = 0
+        db[WINDOW - len(d):] = np.frombuffer(d, dtype=np.uint8)
+        staging.append(dbuf)
+        outs_h, event = _dispatch(dec_ops.decode_batch_dict, (arr, clens, dbuf),
+                                  dev, extra=(len(d), block_size))
+    else:
+        outs_h, event = _dispatch(dec_ops.decode_batch, (arr, clens), dev,
+                                  extra=(block_size,))
     out, n_out, ok = outs_h
 
     def assemble():
@@ -262,4 +313,4 @@ def decode_blocks_begin(stored: list[tuple[bytes, bool]], block_size: int,
             results[i] = outs[j, : int(n[j])].tobytes()
         return results
 
-    return Pending(assemble, [arr, clens, *outs_h], event=event)
+    return Pending(assemble, staging + list(outs_h), event=event)

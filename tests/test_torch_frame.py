@@ -1,4 +1,6 @@
-"""The port's main path as a whole: a 64 KiB level-1 device frame.
+"""The port's main path as a whole: a 64 KiB level-1 device frame, and the
+device options that the port covers or still refuses (the window paths'
+frame parity is in test_torch_frame_window.py).
 
 The reference frame comes from the JAX package's real Pallas path, run on
 the CPU in interpret mode (monkeypatched here; no JAX file changes). The
@@ -15,6 +17,7 @@ import torch
 
 import plz4_tpu
 import plz4_tpu_torch
+from plz4_tpu_torch import corpus, native
 from plz4_tpu.ops import decode_pallas, encode_pallas
 from plz4_tpu.parallel import batch as tpu_batch
 from plz4_tpu_torch.parallel import batch
@@ -101,27 +104,45 @@ def test_corrupt_block_raises_on_device():
     (dict(level=3), "items 9-10"),
     (dict(level=12), "items 9-10"),
     (dict(block_checksum=True), "item 7"),
-    (dict(block_linked=True), "item 8"),
-    (dict(dictionary=b"dictionary " * 20), "item 8"),
-    (dict(block_size_idx=plz4_tpu_torch.BLOCK_IDX_256KB), "item 11"),
-    (dict(block_size_idx=plz4_tpu_torch.BLOCK_IDX_4MB), "item 11"),
-], ids=["level3", "level12", "block_checksum", "linked", "dict", "256KB",
-        "4MB"])
+], ids=["level3", "level12", "block_checksum"])
 def test_uncovered_device_options_raise(opts, item):
     kw = dict(PORT) | opts
     with pytest.raises(NotImplementedError, match=item):
         plz4_tpu_torch.compress(DATA, **kw)
 
 
-def test_default_block_size_raises_on_device():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        plz4_tpu_torch.compress(DATA, backend="device", device="cpu")
+WINDOW_DICT = b"dictionary " * 20 + DATA[:3000]
+
+
+@pytest.mark.parametrize("opts", [
+    dict(block_linked=True),
+    dict(dictionary=WINDOW_DICT),
+    dict(block_size_idx=plz4_tpu_torch.BLOCK_IDX_256KB),
+    dict(block_size_idx=plz4_tpu_torch.BLOCK_IDX_4MB),
+], ids=["linked", "dict", "256KB", "4MB"])
+def test_covered_device_options_round_trip(opts):
+    """Linked blocks, dictionaries and blocks over 64 KiB run on the device
+    backend (K2b, K3, K5) and give frames that both decoders read."""
+    frame = plz4_tpu_torch.compress(DATA, **(dict(PORT) | opts))
+    d = opts.get("dictionary")
+    assert len(frame) < len(DATA)
+    assert plz4_tpu_torch.decompress(frame, backend="device", device="cpu",
+                                     dictionary=d) == DATA
+    assert plz4_tpu_torch.decompress(frame, backend="native",
+                                     dictionary=d) == DATA
+
+
+def test_default_block_size_round_trips_on_device():
+    frame = plz4_tpu_torch.compress(DATA, backend="device", device="cpu")
+    assert frame[5] >> 4 & 7 == plz4_tpu_torch.BLOCK_IDX_4MB  # BD byte
+    assert plz4_tpu_torch.decompress(frame, backend="device",
+                                     device="cpu") == DATA
+    assert plz4_tpu_torch.decompress(frame, backend="native") == DATA
 
 
 @pytest.mark.parametrize("opts,item", [
     (dict(block_checksum=True), "item 7"),
-    (dict(block_size_idx=plz4_tpu_torch.BLOCK_IDX_256KB), "item 11"),
-], ids=["block_checksum", "256KB"])
+], ids=["block_checksum"])
 def test_device_reader_refuses_uncovered_frames(opts, item):
     frame = plz4_tpu_torch.compress(DATA, backend="native",
                                     **(dict(block_size_idx=BS) | opts))
@@ -129,17 +150,52 @@ def test_device_reader_refuses_uncovered_frames(opts, item):
         plz4_tpu_torch.decompress(frame, backend="device", device="cpu")
 
 
-def test_device_reader_refuses_dictionary():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        plz4_tpu_torch.Reader(io.BytesIO(b""), backend="device",
-                              device="cpu", dictionary=b"d" * 100)
+@pytest.mark.parametrize("idx", [plz4_tpu_torch.BLOCK_IDX_256KB,
+                                 plz4_tpu_torch.BLOCK_IDX_1MB,
+                                 plz4_tpu_torch.BLOCK_IDX_4MB],
+                         ids=["256KB", "1MB", "4MB"])
+def test_device_reader_decodes_native_frames(idx):
+    frame = plz4_tpu_torch.compress(DATA, backend="native",
+                                    block_size_idx=idx)
+    assert plz4_tpu_torch.decompress(frame, backend="device",
+                                     device="cpu") == DATA
+
+
+def test_device_reader_decodes_native_records_cut_after_a_match():
+    """A native 256 KiB frame whose blocks split at a match that ends on a
+    64 KiB record boundary: K5 (its plain version here) ends the record
+    there."""
+    data = corpus.silesia_like(1 << 20, seed=5)
+    frame = plz4_tpu_torch.compress(data, backend="native", level=1,
+                                    block_size_idx=plz4_tpu_torch
+                                    .BLOCK_IDX_256KB)
+    cuts = 0
+    for i in range(0, len(data), 1 << 18):
+        recs = native.chunk_split(native.compress(data[i:i + (1 << 18)],
+                                                  level=1), 65536,
+                                  max_out=1 << 18)
+        cuts += sum(not recs[k, 2:6].any() for k in range(1, len(recs)))
+    assert cuts
+    assert plz4_tpu_torch.decompress(frame, backend="device",
+                                     device="cpu") == data
+
+
+@pytest.mark.parametrize("idx", [BS, plz4_tpu_torch.BLOCK_IDX_1MB],
+                         ids=["64KB", "1MB"])
+def test_device_reader_decodes_dictionary_frame(idx):
+    frame = plz4_tpu_torch.compress(DATA, backend="native",
+                                    block_size_idx=idx,
+                                    dictionary=WINDOW_DICT)
+    r = plz4_tpu_torch.Reader(io.BytesIO(frame), backend="device",
+                              device="cpu", dictionary=WINDOW_DICT)
+    assert r.read() == DATA
 
 
 def test_batch_layer_refusals_leak_no_buffers():
     blocks = [b"abc" * 100]
     for kw, item in [(dict(level=9), "items 9-10"),
-                     (dict(with_checksums=True), "item 7"),
-                     (dict(dicts=[b"window"]), "item 8")]:
+                     (dict(level=3, dicts=[b"window"]), "items 9-10"),
+                     (dict(with_checksums=True), "item 7")]:
         with pytest.raises(NotImplementedError, match=item):
             batch.encode_blocks_begin(blocks, 65536, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="item 7"):

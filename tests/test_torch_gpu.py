@@ -2,8 +2,9 @@
 
 Every test here carries the `gpu` marker and skips where torch.cuda is
 unavailable. The file imports neither JAX nor the JAX package (the
-Pallas comparisons live in test_torch_encode.py / test_torch_decode.py),
-so it runs on a machine without JAX:
+Pallas comparisons live in test_torch_encode.py, test_torch_decode.py,
+test_torch_encode_window.py and test_torch_decode_window.py), so it runs
+on a machine without JAX:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
@@ -15,6 +16,7 @@ import torch
 import plz4_tpu_torch
 from plz4_tpu_torch import corpus, native
 from plz4_tpu_torch.ops import decode, encode
+from plz4_tpu_torch.parallel import large
 
 N = 65536
 C = N + decode.ROW_SLACK
@@ -94,3 +96,111 @@ def test_device_frame_matches_plain_frame(cuda):
     assert frame == plz4_tpu_torch.compress(data, device="cpu", **kw)
     assert plz4_tpu_torch.decompress(frame, backend="device") == data
     assert plz4_tpu_torch.decompress(frame, backend="native") == data
+
+
+def _same_rows(kern, plain, counts):
+    """Exact agreement on the per-row counts and flags and on each row's
+    bytes [0, count)."""
+    ko, kc, kk = (t.cpu() for t in kern)
+    po, pc, pk = plain
+    assert torch.equal(kc, pc) and torch.equal(kk, pk)
+    ko, po = ko.reshape(len(counts), -1), po.reshape(len(counts), -1)
+    for i, c in enumerate(counts.tolist()):
+        assert torch.equal(ko[i, :c], po[i, :c]), i
+
+
+@pytest.mark.gpu
+def test_encode_window_kernel_matches_plain(cuda):
+    text = corpus.silesia_like(6 * N, seed=5)
+    # a 4-chunk block after a 1000-byte dictionary and a 2.5-chunk block
+    # with none: chunk rows, windows read in place (wstride 2)
+    blocks = [text[:4 * N], text[4 * N:6 * N + N // 2]]
+    a = torch.zeros((8, N), dtype=torch.uint8)
+    ln = torch.zeros((8,), dtype=torch.int32)
+    wl = torch.zeros((8,), dtype=torch.int32)
+    da = torch.zeros((2, N), dtype=torch.uint8)
+    large.stage_chunks(blocks, [text[-1000:], None], a.numpy().reshape(2, 4, N),
+                       ln.numpy().reshape(2, 4), wl.numpy().reshape(2, 4),
+                       da.numpy())
+    # and one window per row (wstride 1): full, partial, empty
+    rows, lens = _rows([text[:N], text[N:N + 5000], b"hello" * 40], N)
+    wins = torch.from_numpy(np.frombuffer(text[2 * N:5 * N], np.uint8)
+                            .reshape(3, N).copy())
+    wlens = torch.tensor([N, 777, 0], dtype=torch.int32)
+    for (d, l, w, wlen), kw in [((a, ln, da, wl), dict(wstride=2, chunks=4)),
+                                ((rows, lens, wins, wlens), dict())]:
+        before = encode.window_launches
+        kern = encode.encode_batch_window(d.to(cuda), l.to(cuda), w.to(cuda),
+                                          wlen.to(cuda), **kw)
+        assert encode.window_launches == before + 1
+        plain = encode.encode_batch_window_plain(d, l, w, wlen, **kw)
+        _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
+
+
+@pytest.mark.gpu
+def test_decode_dict_kernel_matches_plain(cuda):
+    dict_ = corpus.silesia_like(N, seed=9)
+    streams = [native.compress(p, level=1, dict_=dict_) for p in _payloads()]
+    streams = [s for s in streams if len(s) <= N]
+    streams += [bytes([0x00, 0x04, 0x00, 0x40]) + b"abcd",  # ends at window
+                bytes([0x00, 0xFF, 0xFF, 0x40]) + b"abcd"]  # offset 65535
+    nv = len(streams)
+    streams += [bytes([0x04, 0, 0]), b"\xff" * 40, streams[-3][:999]]
+    rows, clens = _rows(streams, C)
+    dbuf = torch.from_numpy(np.frombuffer(dict_, np.uint8).copy())
+    for dlen in (N, 4096):
+        before = decode.dict_launches
+        kern = decode.decode_batch_dict(rows.to(cuda), clens.to(cuda),
+                                        dbuf.to(cuda), dlen, N)
+        assert decode.dict_launches == before + 1
+        plain = decode.decode_batch_dict_plain(rows, clens, dbuf, dlen, N)
+        _same_rows(kern, plain, plain[1])
+        if dlen == N:
+            assert plain[2][:nv].all() and not plain[2][nv:nv + 2].any()
+
+
+@pytest.mark.gpu
+def test_decode_records_kernel_matches_plain(cuda):
+    text = corpus.silesia_like(8 * N, seed=11)
+    dict_ = text[-3000:]
+    blocks = [native.compress(text[:4 * N], level=1),
+              native.compress(text[4 * N:8 * N], level=1, dict_=dict_)]
+    items = [(b, native.chunk_split(b, large.CHUNK, max_out=4 * N))
+             for b in blocks]
+    K = 5
+    r = np.zeros((2, K, large.CHUNK_IN), np.uint8)
+    m = np.zeros((2, K, 7), np.int32)
+    w = np.zeros((2, large.CHUNK), np.uint8)
+    for b, (j, d) in enumerate([(0, None), (1, dict_)]):
+        large.stage_records(items[j:j + 1], d, r[b:b + 1], m[b:b + 1],
+                            w[b:b + 1])
+    bad = r.copy(), m.copy()
+    bad[0][0, 2, 100:110] ^= 0x5A  # flipped bytes in a record slice
+    bad[1][1, 3, 0] -= 7  # a truncated record
+    for rows, metas in [(r, m), bad]:
+        args = [torch.from_numpy(x) for x in (rows, metas, w)]
+        before = decode.record_launches
+        kern = decode.decode_records_batch(*(x.to(cuda) for x in args))
+        assert decode.record_launches == before + 1
+        plain = decode.decode_records_batch_plain(*args)
+        _same_rows(kern, plain, plain[1].reshape(-1))
+    assert plain[2][0, :2].all() and plain[2][1, :3].all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [
+    dict(),
+    dict(block_size_idx=plz4_tpu_torch.BLOCK_IDX_64KB,
+         dictionary=corpus.silesia_like(N, seed=13)),
+    dict(block_size_idx=plz4_tpu_torch.BLOCK_IDX_64KB, block_linked=True),
+], ids=["4MB", "dict", "linked"])
+def test_device_window_frame_matches_plain_frame(cuda, opts):
+    data = corpus.silesia_like(5 * N + 4321)
+    kw = dict(backend="device", level=1, device_batch=4) | opts
+    frame = plz4_tpu_torch.compress(data, device="cuda", **kw)
+    assert frame == plz4_tpu_torch.compress(data, device="cpu", **kw)
+    d = opts.get("dictionary")
+    assert plz4_tpu_torch.decompress(frame, backend="device",
+                                     dictionary=d) == data
+    assert plz4_tpu_torch.decompress(frame, backend="native",
+                                     dictionary=d) == data

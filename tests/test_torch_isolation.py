@@ -10,7 +10,9 @@ import sys
 import numpy as np
 
 from plz4_tpu.ops import decode_pallas, encode_pallas
+from plz4_tpu.parallel import large as tpu_large
 from plz4_tpu_torch.ops import decode, encode
+from plz4_tpu_torch.parallel import large
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -35,7 +37,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for mod in ("plz4_tpu_torch.ops.encode", "plz4_tpu_torch.ops.decode",
-                "plz4_tpu_torch.parallel.batch", "plz4_tpu_torch.api",
+                "plz4_tpu_torch.parallel.batch",
+                "plz4_tpu_torch.parallel.large", "plz4_tpu_torch.api",
                 "plz4_tpu_torch.native", "plz4_tpu_torch.engine.writer"):
         assert mod in res["imported"]
 
@@ -57,6 +60,15 @@ def test_row_widths_match_pallas():
     assert decode.MAX_OUT <= decode_pallas._BW_MAX_OUT
     assert encode_pallas._bw_fits(encode.MAX_ROW + 8,
                                   encode.out_width(encode.MAX_ROW), mid=False)
+
+
+def test_large_block_geometry_matches_jax_package():
+    # chunk span, record input cap and chunk-window preload stride
+    assert large.CHUNK == tpu_large.CHUNK == encode.MAX_ROW
+    assert large.CHUNK_IN == tpu_large.CHUNK_IN
+    assert large.CHUNK_WSTRIDE == 2
+    # K5 stages a record slice and two record outputs in shared memory
+    assert large.CHUNK_IN + 2 * large.CHUNK <= decode.MAX_SMEM
 
 
 def test_csrc_constants_match_python():

@@ -2,12 +2,13 @@
 """Where the port's main path spends its time, on one CUDA GPU.
 
 Runs plz4_tpu_torch.compress / decompress (backend="device", level 1,
-64 KiB blocks) over a silesia-like payload three ways: untraced (wall
-time), under torch.profiler (device time by kernel and copy, and the
-device's busy share of the wall time), and under cProfile (host time by
-Python function).
+64 KiB blocks, or the default 4 MiB with --block 4M) over a silesia-like
+payload three ways: untraced (wall time), under torch.profiler (device
+time by kernel and copy, and the device's busy share of the wall time),
+and under cProfile (host time by Python function).
 
     python3 tools/profile_torch_main_path.py [--mib 64] [--seed 2003]
+        [--block 64K|256K|1M|4M]
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mib", type=int, default=64)
     ap.add_argument("--seed", type=int, default=2003)
+    ap.add_argument("--block", choices=["64K", "256K", "1M", "4M"],
+                    default="64K")
     args = ap.parse_args()
 
     import torch
@@ -44,7 +47,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     data = corpus.silesia_like(args.mib << 20, seed=args.seed)
-    opts = dict(backend="device", level=1, block_size_idx=plz4.BLOCK_IDX_64KB)
+    idx = {"64K": plz4.BLOCK_IDX_64KB, "256K": plz4.BLOCK_IDX_256KB,
+           "1M": plz4.BLOCK_IDX_1MB, "4M": plz4.BLOCK_IDX_4MB}[args.block]
+    opts = dict(backend="device", level=1, block_size_idx=idx)
 
     def enc():
         return plz4.compress(data, **opts)
@@ -71,7 +76,8 @@ def main() -> int:
         events = [e for e in prof.key_averages()
                   if e.self_device_time_total > 0]
         busy_us = sum(e.self_device_time_total for e in events)
-        print(f"\n== {name} [{card}]: {len(data) / 1e9 / wall:.3f} GB/s "
+        print(f"\n== {name}, {args.block} blocks [{card}]: "
+              f"{len(data) / 1e9 / wall:.3f} GB/s "
               f"untraced (median of 3, {wall * 1e3:.1f} ms); traced "
               f"{traced * 1e3:.1f} ms; device busy {busy_us / 1e3:.1f} ms "
               f"= {busy_us / 1e4 / traced:.1f}% of the traced wall time")
