@@ -9,7 +9,12 @@ backend="device" and checks that they went through the kernels:
   * the same 256 MiB at the default 4 MiB blocks (K2b over 64 KiB chunk
     rows, K5 over records);
   * 32 MiB frames of 64 KiB blocks with a dictionary (K2b, K3) and with
-    linked blocks (K2b).
+    linked blocks (K2b);
+  * the level ladder: the bench-corpus ratio at levels 3, 8 and 9-12, a
+    256 MiB frame at level 9 (the deep hash-chain kernel K4) at 64 KiB and
+    at 4 MiB blocks, and 32 MiB frames at levels 3 (K2c), 8 (K2d) and 12
+    (K4), at level 8 with 4 MiB blocks, linked at level 6 and with a
+    dictionary at level 9.
 
     python3 chip_smoke.py
 
@@ -35,6 +40,12 @@ CHUNKS = BIG // BLOCK  # 64 KiB chunk rows per 4 MiB block
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate
 OPS_PER_BYTE = 16  # generous integer-op count of the serial parse
+# bench-corpus ratio (32 rows of 64 KiB) per device level, computed once
+# from the JAX package's Pallas kernels in interpret mode on the CPU
+# (encode_batch_pallas_mid / _deep over the same rows); the parse is
+# byte-exact, so the kernels must give the same streams
+LEVEL_RATIOS = {3: 2.4158, 8: 2.4224, 9: 2.4390, 10: 2.4736, 11: 2.4892,
+                12: 2.4917}
 
 
 def bench_corpus(size: int) -> bytes:
@@ -220,23 +231,28 @@ def main() -> int:
     edges = edge_payloads()
     main_rows = [main_data[i:i + BLOCK] for i in range(0, ROWS * BLOCK, BLOCK)]
 
-    # ---- 3. K2a against its plain version --------------------------------
-    def enc_both(payloads):
-        a, n = rows_of(payloads, BLOCK)
-        ha, hn = torch.from_numpy(a), torch.from_numpy(n)
-        da, dn = ha.to(dev), hn.to(dev)
-        kern = encode.encode_batch(da, dn)
+    def both(name, kern_fn, plain_fn, host_args, what, **kw):
+        """Run an encode kernel and its plain version on the same rows; hold
+        ok, totals and each ok row's stream bytes equal. Returns (device
+        operands, kernel outputs, plain outputs, plain ms, max abs err)."""
+        dev_args = [x.to(dev) for x in host_args]
+        kern = kern_fn(*dev_args, **kw)
         torch.cuda.synchronize()
-        plain, p_ms = host_ms(lambda: encode.encode_batch_plain(ha, hn))
-        okv = plain[2].numpy()
-        tot = plain[1].numpy()
+        plain, p_ms = host_ms(lambda: plain_fn(*host_args, **kw))
+        okv, tot = plain[2].numpy(), plain[1].numpy()
         check(bool((kern[1].cpu().numpy() == tot).all()
                    and (kern[2].cpu().numpy() == okv).all()),
-              f"K2a ok/total equal plain on {len(payloads)} rows")
+              f"{name} ok/total equal plain on {what}")
         err = max_err(kern, plain, np.where(okv, tot, 0))
-        check(err == 0, "K2a stream bytes equal plain where ok (max abs "
-                        f"err {err})")
-        return (da, dn), kern, plain, p_ms, err
+        check(err == 0, f"{name} stream bytes equal plain where ok on {what} "
+                        f"(max abs err {err})")
+        return dev_args, kern, plain, p_ms, err
+
+    # ---- 3. K2a against its plain version --------------------------------
+    def enc_both(payloads):
+        return both("K2a", encode.encode_batch, encode.encode_batch_plain,
+                    [torch.from_numpy(x) for x in rows_of(payloads, BLOCK)],
+                    f"{len(payloads)} rows")
 
     (e_in, e_kern, e_plain, enc_plain_ms, enc_err) = enc_both(main_rows)
     (_, x_kern, _, _, x_err) = enc_both(bench_rows + edges)
@@ -355,19 +371,8 @@ def main() -> int:
         return t
 
     def window_both(host_args, what, **kw):
-        dev_args = [x.to(dev) for x in host_args]
-        kern = encode.encode_batch_window(*dev_args, **kw)
-        torch.cuda.synchronize()
-        plain, p_ms = host_ms(
-            lambda: encode.encode_batch_window_plain(*host_args, **kw))
-        okv, tot = plain[2].numpy(), plain[1].numpy()
-        check(bool((kern[1].cpu().numpy() == tot).all()
-                   and (kern[2].cpu().numpy() == okv).all()),
-              f"K2b ok/total equal plain on {what}")
-        err = max_err(kern, plain, np.where(okv, tot, 0))
-        check(err == 0, f"K2b stream bytes equal plain where ok on {what} "
-                        f"(max abs err {err})")
-        return dev_args, kern, plain, p_ms, err
+        return both("K2b", encode.encode_batch_window,
+                    encode.encode_batch_window_plain, host_args, what, **kw)
 
     cw_host = chunk_batch(big_blocks, None)
     (cw_in, cw_kern, cw_plain, encw_plain_ms, encw_err) = window_both(
@@ -609,6 +614,193 @@ def main() -> int:
                                                         **o),
               f"{name}: the first 8 MiB frame equals the device=cpu frame")
 
+    # ---- 11. K2c, K2d and K4 against their plain versions ---------------
+    from plz4_tpu_torch.ops import encode_deep, encode_mid
+    from plz4_tpu_torch.parallel import batch
+
+    main_host = tuple(torch.from_numpy(x) for x in rows_of(main_rows, BLOCK))
+    edge_host = tuple(torch.from_numpy(x) for x in rows_of(edges, BLOCK))
+    chunk_what = f"{2 * CHUNKS} chunk rows of two 4 MiB blocks"
+    window_what = ("rows with a full, a partial and an empty 64 KiB window "
+                   "and a short block")
+    mid = {}  # depth4 -> (ms, plain ms, max err, plain totals, chunk ms)
+    for depth4, name in ((False, "K2c"), (True, "K2d")):
+        m_in, _, m_plain, m_plain_ms, m_err = both(
+            name, encode_mid.encode_batch_mid,
+            encode_mid.encode_batch_mid_plain,
+            main_host, f"{ROWS} main-path rows", depth4=depth4)
+        errs = [m_err]
+        errs.append(both(name, encode_mid.encode_batch_mid,
+                         encode_mid.encode_batch_mid_plain, edge_host,
+                         "the edge payloads", depth4=depth4)[4])
+        c_in, _, _, _, c_err = both(
+            name, encode_mid.encode_batch_mid_window,
+            encode_mid.encode_batch_mid_window_plain, cw_host,
+            chunk_what + " (wstride 2)", depth4=depth4,
+            wstride=large.CHUNK_WSTRIDE, chunks=CHUNKS)
+        errs.append(c_err)
+        errs.append(both(name, encode_mid.encode_batch_mid_window,
+                         encode_mid.encode_batch_mid_window_plain, w_host,
+                         window_what + " (wstride 1)", depth4=depth4)[4])
+        ms = cuda_ms(lambda: encode_mid.encode_batch_mid(*m_in, depth4), 5)
+        c_ms = cuda_ms(lambda: encode_mid.encode_batch_mid_window(
+            *c_in, depth4, large.CHUNK_WSTRIDE, CHUNKS), 5)
+        mid[depth4] = (ms, m_plain_ms, max(errs), m_plain[1].numpy(), c_ms)
+        del m_in, c_in
+    deep = {}  # tries -> (ms, plain ms, max err, plain totals, chunk ms)
+    for tries in (2, 32):
+        d_in, _, d_plain, d_plain_ms, d_err = both(
+            "K4", encode_deep.encode_batch_deep,
+            encode_deep.encode_batch_deep_plain, main_host,
+            f"{ROWS} main-path rows (tries {tries}, hash_log 15)",
+            tries=tries)
+        errs = [d_err]
+        errs.append(both("K4", encode_deep.encode_batch_deep,
+                         encode_deep.encode_batch_deep_plain, edge_host,
+                         f"the {len(edges)} edge payloads (tries {tries})",
+                         tries=tries)[4])
+        c_in, _, _, _, c_err = both(
+            "K4", encode_deep.encode_batch_deep_window,
+            encode_deep.encode_batch_deep_window_plain, cw_host,
+            f"{chunk_what} (tries {tries}, hash_log 14, 32 KiB windows)",
+            tries=tries, chunks=CHUNKS)
+        errs.append(c_err)
+        errs.append(both("K4", encode_deep.encode_batch_deep_window,
+                         encode_deep.encode_batch_deep_window_plain, w_host,
+                         f"{window_what} (tries {tries}, hash_log 14)",
+                         tries=tries)[4])
+        ms = cuda_ms(lambda: encode_deep.encode_batch_deep(*d_in, tries), 3)
+        c_ms = cuda_ms(lambda: encode_deep.encode_batch_deep_window(
+            *c_in, tries, CHUNKS), 3)
+        deep[tries] = (ms, d_plain_ms, max(errs), d_plain[1].numpy(), c_ms)
+        del d_in, c_in
+    print(f"K4 plain-version rows held: {ROWS} main-path, {len(edges)} edge, "
+          f"{2 * CHUNKS} chunk and {len(w_rows)} window rows at tries 2 and "
+          "32")
+    print(f"ms per batch [{smi}]: K2c {mid[False][0]:.3f} ({ROWS} rows), "
+          f"{mid[False][4]:.3f} ({2 * CHUNKS} chunk rows); K2d "
+          f"{mid[True][0]:.3f}, {mid[True][4]:.3f} (chunk rows: two tables "
+          f"in device memory); K4 tries 2 {deep[2][0]:.3f}, {deep[2][4]:.3f} "
+          f"(chunk rows); K4 tries 32 {deep[32][0]:.3f}, {deep[32][4]:.3f}")
+
+    def row_bound(totals):
+        """The byte bound of an encode over ROWS main-path rows."""
+        return bound_ms(ROWS * BLOCK + 8 * ROWS + int(totals.sum()) + ROWS,
+                        OPS_PER_BYTE * ROWS * BLOCK)
+
+    # ---- 12. bench-corpus ratio per level --------------------------------
+    bench_dev = [torch.from_numpy(x).to(dev) for x in rows_of(bench_rows,
+                                                               BLOCK)]
+    for level, want in LEVEL_RATIOS.items():
+        _, tot, okl = batch.dispatch_encode(*bench_dev, level)
+        tot = tot.cpu().numpy()
+        r = 32 * BLOCK / int(tot.sum())
+        check(bool(okl.cpu().numpy().all()) and round(r, 4) == want,
+              f"level {level} bench-corpus ratio {r:.4f} == {want}")
+
+    # ---- 13. this slice's main path: 256 MiB at level 9 ------------------
+    counters = [(encode, "launches"), (encode, "window_launches"),
+                (encode_mid, "launches"), (encode_mid, "window_launches"),
+                (encode_deep, "launches"), (encode_deep, "window_launches"),
+                (decode, "launches"), (decode, "dict_launches"),
+                (decode, "record_launches")]
+
+    def reset():
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+        large.host_decodes = 0
+
+    def read():
+        return {f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(mod, attr)
+                for mod, attr in counters}
+
+    del frame4, back4, native4
+    k4_launches = 0
+    for label, o9, warm_n, k4_key, n_batches, k4_ms in (
+            ("64 KiB", dict(backend="device", level=9,
+                            block_size_idx=plz4.BLOCK_IDX_64KB),
+             ROWS * BLOCK, "encode_deep.launches", n_blocks // ROWS,
+             deep[2][0]),
+            ("4 MiB", dict(backend="device", level=9), 2 * BIG,
+             "encode_deep.window_launches", n_big // 2, deep[2][4])):
+        warm = main_data[:warm_n]
+        check(plz4.decompress(plz4.compress(warm, **o9),
+                              backend="device") == warm,
+              f"level 9 warm-up round trip at {label} blocks")
+        torch.cuda.synchronize()
+        reset()
+        f9, t_enc9 = host_ms(lambda: plz4.compress(main_data, **o9))
+        torch.cuda.synchronize()
+        enc_counts = read()
+        reset()
+        b9, t_dec9 = host_ms(lambda: plz4.decompress(f9, backend="device"))
+        torch.cuda.synchronize()
+        dec_counts = read()
+        check(b9 == main_data, f"256 MiB level-9 round trip at {label} "
+                               "blocks is intact")
+        others = {k: v for k, v in enc_counts.items()
+                  if k != k4_key and v}
+        check(enc_counts[k4_key] == n_batches and not others,
+              f"level 9 at {label}: K4 once per Writer batch "
+              f"({enc_counts[k4_key]} of {n_batches}), no other encode "
+              f"launch ({others})")
+        if label == "64 KiB":
+            k4_launches = enc_counts[k4_key]
+        check(plz4.decompress(f9, backend="native") == main_data,
+              f"level-9 {label} frame decodes with backend=native")
+        head = main_data[: 1 << 20]
+        check(plz4.compress(head, **o9) == plz4.compress(head, device="cpu",
+                                                         **o9),
+              f"level 9 at {label}: the first 1 MiB frame equals the "
+              "device=cpu frame")
+        dec_used = {k: v for k, v in dec_counts.items() if v}
+        print(f"level-9 main path {label} [{smi}]: encode "
+              f"{gb / (t_enc9 / 1e3):.3f} GB/s ({t_enc9:.1f} ms), decode "
+              f"{gb / (t_dec9 / 1e3):.3f} GB/s ({t_dec9:.1f} ms); frame "
+              f"ratio {len(main_data) / len(f9):.4f}; decode launches "
+              f"{dec_used}; K4 share of encode wall {enc_counts[k4_key]} x "
+              f"{k4_ms:.3f} ms = "
+              f"{100 * enc_counts[k4_key] * k4_ms / t_enc9:.1f}%")
+        del f9, b9
+
+    # ---- 14. the rest of the ladder at 32 MiB ----------------------------
+    ladder_launches = {}
+    kb64 = dict(block_size_idx=plz4.BLOCK_IDX_64KB)
+    n_batch32 = math.ceil(n_win / ROWS)
+    for name, o, key, want in (
+            ("level 3", dict(level=3) | kb64, "encode_mid.launches",
+             n_batch32),
+            ("level 8", dict(level=8) | kb64, "encode_mid.launches",
+             n_batch32),
+            ("level 12", dict(level=12) | kb64, "encode_deep.launches",
+             n_batch32),
+            ("level 8 at 4 MiB blocks", dict(level=8),
+             "encode_mid.window_launches", len(win_data) // BIG // 2),
+            ("linked level 6", dict(level=6, block_linked=True) | kb64,
+             "encode_mid.window_launches", n_batch32),
+            ("dictionary level 9", dict(level=9, dictionary=dict64) | kb64,
+             "encode_deep.window_launches", n_batch32)):
+        d = o.get("dictionary")
+        reset()
+        f, t_e = host_ms(lambda: plz4.compress(win_data, backend="device",
+                                               **o))
+        torch.cuda.synchronize()
+        counts = read()
+        back = plz4.decompress(f, backend="device", dictionary=d)
+        torch.cuda.synchronize()
+        check(back == win_data, f"32 MiB {name} frame device round trip")
+        others = {k: v for k, v in counts.items() if k != key and v}
+        check(counts[key] == want and not others,
+              f"{name}: {key} {counts[key]} of {want}, no other encode "
+              f"launch ({others})")
+        check(plz4.decompress(f, backend="native", dictionary=d) == win_data,
+              f"{name} device frame decodes with backend=native")
+        ladder_launches[name] = counts[key]
+        print(f"{name} [{smi}]: encode {len(win_data) / 1e6 / t_e:.3f} GB/s, "
+              f"frame ratio {len(win_data) / len(f):.4f}")
+
+    mid_bound = {d4: row_bound(mid[d4][3]) for d4 in mid}
+    deep_bound = row_bound(deep[2][3])
     kernels = [
         dict(name="K2a greedy block encode", route="cuda",
              source="plz4_tpu_torch/csrc/lz4_encode.cu",
@@ -647,6 +839,26 @@ def main() -> int:
              launches=k5_launches, max_abs_err=max(k5_err, k5c_err),
              ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound[0],
              bound_by=k5_bound[1], library_ms=None),
+        dict(name="K2c depth-2 chain encode (levels 3-7)", route="cuda",
+             source="plz4_tpu_torch/csrc/lz4_encode_mid.cu",
+             replaces="plz4_tpu/ops/encode_pallas.py:570",
+             launches=ladder_launches["level 3"], max_abs_err=mid[False][2],
+             ms=mid[False][0], plain_ms=mid[False][1],
+             bound_ms=mid_bound[False][0], bound_by=mid_bound[False][1],
+             library_ms=None),
+        dict(name="K2d depth-4 chain encode (level 8)", route="cuda",
+             source="plz4_tpu_torch/csrc/lz4_encode_mid.cu",
+             replaces="plz4_tpu/ops/encode_pallas.py:580",
+             launches=ladder_launches["level 8"], max_abs_err=mid[True][2],
+             ms=mid[True][0], plain_ms=mid[True][1],
+             bound_ms=mid_bound[True][0], bound_by=mid_bound[True][1],
+             library_ms=None),
+        dict(name="K4 deep hash-chain encode (levels 9-12; tries 2)",
+             route="cuda", source="plz4_tpu_torch/csrc/lz4_encode_deep.cu",
+             replaces="plz4_tpu/ops/encode_pallas.py:1031",
+             launches=k4_launches, max_abs_err=max(deep[2][2], deep[32][2]),
+             ms=deep[2][0], plain_ms=deep[2][1], bound_ms=deep_bound[0],
+             bound_by=deep_bound[1], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

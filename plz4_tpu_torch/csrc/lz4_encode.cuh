@@ -53,6 +53,36 @@ LZ4T_HD void lz4t_window_preload(const uint8_t* c, int base, int first,
     tab[lz4t_hash(lz4t_rd32(c, p))] = (uint32_t)(p + 1);
 }
 
+// The first usable window byte of row r of a window launch whose rows hold
+// the last Dc bytes of their windows (0 without a window).
+LZ4T_HD int lz4t_window_first(const int32_t* wlens, int r, int Dc) {
+  return Dc ? Dc - lz4t_min(lz4t_max(wlens[r], 0), Dc) : 0;
+}
+
+#if defined(__CUDACC__)
+// The thread block stages row r of a window launch into shared memory as
+// [the last Dc bytes of its D-byte window | block N | 8 zero bytes]: row r
+// takes row r - 1 as its window when r % K > 0 (the previous chunk of the
+// same large block, read in place), else win[r / K]. The caller
+// synchronises.
+__device__ __forceinline__ void lz4t_stage_row(uint32_t* roww,
+                                               const uint8_t* data,
+                                               const uint8_t* win, int r,
+                                               int N, int D, int K, int Dc) {
+  if (Dc) {
+    const uint8_t* w =
+        r % K ? data + (size_t)(r - 1) * N : win + (size_t)(r / K) * D;
+    const uint32_t* wsrc = reinterpret_cast<const uint32_t*>(w + (D - Dc));
+    for (int i = threadIdx.x; i < Dc / 4; i += blockDim.x) roww[i] = wsrc[i];
+  }
+  const uint32_t* bsrc =
+      reinterpret_cast<const uint32_t*>(data + (size_t)r * N);
+  for (int i = threadIdx.x; i < N / 4; i += blockDim.x)
+    roww[Dc / 4 + i] = bsrc[i];
+  if (threadIdx.x < 2) roww[(Dc + N) / 4 + threadIdx.x] = 0;
+}
+#endif
+
 LZ4T_HD int lz4t_emit_len_ext(uint8_t* o, int p, int v) {
   while (v >= 255) {
     o[p++] = 255;

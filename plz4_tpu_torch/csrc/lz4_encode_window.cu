@@ -47,18 +47,11 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t* tab = smem;
   uint32_t* roww = smem + kTab;  // [window D | block N | 8 zero bytes]
   const int r = blockIdx.x;
-  const uint32_t* wsrc = reinterpret_cast<const uint32_t*>(
-      r % K ? data + (size_t)(r - 1) * N : win + (size_t)(r / K) * D);
-  const uint32_t* bsrc =
-      reinterpret_cast<const uint32_t*>(data + (size_t)r * N);
   for (int i = threadIdx.x; i < kTab; i += blockDim.x) tab[i] = 0;
-  for (int i = threadIdx.x; i < D / 4; i += blockDim.x) roww[i] = wsrc[i];
-  for (int i = threadIdx.x; i < N / 4; i += blockDim.x)
-    roww[D / 4 + i] = bsrc[i];
-  if (threadIdx.x < 2) roww[(D + N) / 4 + threadIdx.x] = 0;
+  lz4t_stage_row(roww, data, win, r, N, D, K, D);
   __syncthreads();
   const uint8_t* c = reinterpret_cast<const uint8_t*>(roww);
-  const int first = D - lz4t_min(lz4t_max(wlens[r], 0), D);
+  const int first = lz4t_window_first(wlens, r, D);
   for (int p = first + threadIdx.x * wstride; p < D;
        p += kThreads * wstride)
     atomicMax(&tab[lz4t_hash(lz4t_rd32(c, p))], (uint32_t)(p + 1));

@@ -1,5 +1,6 @@
 // Host build of the CUDA kernels' row bodies (lz4_encode.cuh,
-// lz4_decode.cuh, lz4_decode_window.cuh), compiled with g++ so that the CPU
+// lz4_encode_mid.cuh, lz4_encode_deep.cuh, lz4_decode.cuh,
+// lz4_decode_window.cuh), compiled with g++ so that the CPU
 // tests can run the kernels' own logic on machines without a GPU. Same
 // layouts and results as the kernels' launchers.
 #include <string.h>
@@ -9,6 +10,8 @@
 #include "lz4_decode.cuh"
 #include "lz4_decode_window.cuh"
 #include "lz4_encode.cuh"
+#include "lz4_encode_deep.cuh"
+#include "lz4_encode_mid.cuh"
 
 // K2a: lz4_encode.cu
 extern "C" void lz4t_host_encode(const uint8_t* data, const int32_t* lens,
@@ -30,6 +33,22 @@ extern "C" void lz4t_host_encode(const uint8_t* data, const int32_t* lens,
   }
 }
 
+// Stage row r of a window launch: [the last Dc bytes of its D-byte window |
+// block | 8 zero bytes]. Row r takes row r - 1 as its window when r % K > 0,
+// else win[r / K]. Returns first, the row's first usable window byte.
+static int stage_window_row(std::vector<uint8_t>& row, const uint8_t* data,
+                            const uint8_t* win, const int32_t* wlens, int r,
+                            int N, int D, int K, int Dc) {
+  row.assign(Dc + N + 8, 0);
+  if (Dc) {
+    const uint8_t* w =
+        r % K ? data + (size_t)(r - 1) * N : win + (size_t)(r / K) * D;
+    memcpy(row.data(), w + (D - Dc), Dc);
+  }
+  memcpy(row.data() + Dc, data + (size_t)r * N, N);
+  return lz4t_window_first(wlens, r, Dc);
+}
+
 // K2b: lz4_encode_window.cu
 extern "C" void lz4t_host_encode_window(const uint8_t* data,
                                         const int32_t* lens,
@@ -39,19 +58,67 @@ extern "C" void lz4t_host_encode_window(const uint8_t* data,
                                         int N, int D, int K, int wstride,
                                         int CAP) {
   std::vector<uint32_t> tab(1 << LZ4T_HASH_LOG);
-  std::vector<uint8_t> row(D + N + 8);
+  std::vector<uint8_t> row;
   for (int r = 0; r < R; r++) {
     memset(tab.data(), 0, tab.size() * 4);
-    memset(row.data(), 0, row.size());
-    memcpy(row.data(),
-           r % K ? data + (size_t)(r - 1) * N : win + (size_t)(r / K) * D, D);
-    memcpy(row.data() + D, data + (size_t)r * N, N);
-    const int first = D - lz4t_min(lz4t_max(wlens[r], 0), D);
+    const int first = stage_window_row(row, data, win, wlens, r, N, D, K, D);
     lz4t_window_preload(row.data(), D, first, wstride, tab.data());
     int total, okv;
     lz4t_encode_row<false>(row.data(), D + N + 8, D, first, lens[r],
                            out + (size_t)r * CAP, CAP, tab.data(), nullptr,
                            &total, &okv);
+    totals[r] = total;
+    ok[r] = okv != 0;
+  }
+}
+
+// K2c (depth 2) and K2d (depth 4): lz4_encode_mid.cu. D = 0 is a plain row.
+extern "C" void lz4t_host_encode_mid(const uint8_t* data, const int32_t* lens,
+                                     const uint8_t* win, const int32_t* wlens,
+                                     uint8_t* out, int32_t* totals,
+                                     uint8_t* ok, int R, int N, int D, int K,
+                                     int wstride, int CAP, int depth4) {
+  const int T = 1 << LZ4T_MID_HASH_LOG;
+  std::vector<uint32_t> tabs(4 * T);
+  std::vector<uint8_t> row;
+  const lz4t_mid_tabs t = {tabs.data(), tabs.data() + T, tabs.data() + 2 * T,
+                           tabs.data() + 3 * T};
+  for (int r = 0; r < R; r++) {
+    memset(tabs.data(), 0, tabs.size() * 4);
+    const int first = stage_window_row(row, data, win, wlens, r, N, D, K, D);
+    int total, okv;
+    if (depth4) {
+      lz4t_mid_preload<4>(row.data(), D, first, wstride, t);
+      lz4t_encode_mid_row<4>(row.data(), D + N + 8, D, first, lens[r],
+                             out + (size_t)r * CAP, CAP, t, &total, &okv);
+    } else {
+      lz4t_mid_preload<2>(row.data(), D, first, wstride, t);
+      lz4t_encode_mid_row<2>(row.data(), D + N + 8, D, first, lens[r],
+                             out + (size_t)r * CAP, CAP, t, &total, &okv);
+    }
+    totals[r] = total;
+    ok[r] = okv != 0;
+  }
+}
+
+// K4: lz4_encode_deep.cu. Each row's window is the last Dc of its D bytes
+// (D = Dc = 0 for plain rows).
+extern "C" void lz4t_host_encode_deep(const uint8_t* data,
+                                      const int32_t* lens,
+                                      const uint8_t* win,
+                                      const int32_t* wlens, uint8_t* out,
+                                      int32_t* totals, uint8_t* ok, int R,
+                                      int N, int D, int K, int Dc, int CAP,
+                                      int tries, int hash_log) {
+  std::vector<uint32_t> head(1 << hash_log), chain(Dc + N + 8);
+  std::vector<uint8_t> row;
+  for (int r = 0; r < R; r++) {
+    memset(head.data(), 0, head.size() * 4);
+    const int first = stage_window_row(row, data, win, wlens, r, N, D, K, Dc);
+    int total, okv;
+    lz4t_encode_deep_row(row.data(), Dc, first, lens[r],
+                         out + (size_t)r * CAP, CAP, tries, hash_log,
+                         head.data(), chain.data(), &total, &okv);
     totals[r] = total;
     ok[r] = okv != 0;
   }

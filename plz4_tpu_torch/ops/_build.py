@@ -29,6 +29,8 @@ KERNELS = {
     "lz4_encode": {"lz4t_launch": (5, 3)},            # K2a
     "lz4_decode": {"lz4t_launch": (5, 3)},            # K1
     "lz4_encode_window": {"lz4t_launch": (7, 6)},     # K2b
+    "lz4_encode_mid": {"lz4t_launch": (8, 7)},        # K2c, K2d
+    "lz4_encode_deep": {"lz4t_launch": (8, 8)},       # K4
     "lz4_decode_window": {"lz4t_launch_dict": (6, 5),  # K3
                           "lz4t_launch_records": (6, 4)},  # K5 (and K6c)
 }
@@ -37,6 +39,8 @@ KERNELS = {
 HOST_FNS = {
     "lz4t_host_encode": (5, 3),
     "lz4t_host_encode_window": (7, 6),
+    "lz4t_host_encode_mid": (7, 7),
+    "lz4t_host_encode_deep": (7, 8),
     "lz4t_host_decode": (5, 3),
     "lz4t_host_decode_dict": (6, 5),
     "lz4t_host_decode_records": (6, 4),

@@ -13,6 +13,8 @@ with ok False, and the frame layer stores it raw.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -36,36 +38,70 @@ def out_width(N: int) -> int:
     return (N + N // 255 + 64 + 3) & ~3
 
 
+def check_rows(data: torch.Tensor, lens: torch.Tensor) -> tuple[int, int]:
+    """(R, N) of an encode launch's rows; raises ValueError on rows the
+    encode kernels do not take."""
+    if data.dim() != 2 or data.dtype != torch.uint8:
+        raise ValueError("data must be a (R, N) uint8 tensor")
+    R, N = data.shape
+    if N % 4 or N > MAX_ROW:
+        raise ValueError(f"row width {N}: needs N % 4 == 0 and N <= {MAX_ROW}")
+    if (lens.shape != (R,) or lens.dtype != torch.int32
+            or lens.device != data.device):
+        raise ValueError("lens must be a (R,) int32 tensor on data's device")
+    if data.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {data.device}")
+    return R, N
+
+
+def check_windows(data: torch.Tensor, windows: torch.Tensor,
+                  wlens: torch.Tensor, chunks: int, wstride: int = 1) -> int:
+    """Window width D of a window launch over data's rows (see
+    encode_batch_window); raises ValueError on windows the kernels do not
+    take."""
+    R, N = data.shape
+    if windows.dim() != 2 or windows.dtype != torch.uint8:
+        raise ValueError("windows must be a (G, D) uint8 tensor")
+    G, D = windows.shape
+    if (chunks < 1 or G * chunks != R or D % 4 or D > MAX_WINDOW
+            or (chunks > 1 and D != N) or wstride < 1):
+        raise ValueError(f"windows {tuple(windows.shape)} for {R} rows of "
+                         f"{N} bytes in groups of {chunks}, wstride "
+                         f"{wstride}: need R == G * chunks, D % 4 == 0, "
+                         f"D <= {MAX_WINDOW}, D == N when chunks > 1")
+    if (wlens.shape != (R,) or wlens.dtype != torch.int32
+            or wlens.device != data.device):
+        raise ValueError("wlens must be a (R,) int32 tensor on data's device")
+    if windows.device != data.device:
+        raise ValueError("windows must be on data's device")
+    return D
+
+
+def empty_outputs(R: int, N: int, device: torch.device):
+    """(out (R, CAP) uint8, totals (R,) int32, ok (R,) bool) for a launch."""
+    return (torch.empty((R, out_width(N)), dtype=torch.uint8, device=device),
+            torch.empty((R,), dtype=torch.int32, device=device),
+            torch.empty((R,), dtype=torch.bool, device=device))
+
+
 def encode_batch(data: torch.Tensor, lens: torch.Tensor):
     """data (B, N) uint8 zero-padded rows with N % 4 == 0 and N <= 64 KiB,
     lens (B,) int32 -> (out (B, CAP) uint8, totals (B,) int32, ok (B,)
     bool). On CUDA tensors it launches K2a on the current stream without
     synchronising; on CPU tensors it runs the plain version."""
     global launches
-    if data.dim() != 2 or data.dtype != torch.uint8:
-        raise ValueError("data must be a (B, N) uint8 tensor")
-    B, N = data.shape
-    if N % 4 or N > MAX_ROW:
-        raise ValueError(f"row width {N}: needs N % 4 == 0 and N <= {MAX_ROW}")
-    if (lens.shape != (B,) or lens.dtype != torch.int32
-            or lens.device != data.device):
-        raise ValueError("lens must be a (B,) int32 tensor on data's device")
+    B, N = check_rows(data, lens)
     if data.device.type == "cpu":
         return encode_batch_plain(data, lens)
-    if data.device.type != "cuda":
-        raise ValueError(f"unsupported device {data.device}")
     data, lens = data.contiguous(), lens.contiguous()
-    CAP = out_width(N)
-    out = torch.empty((B, CAP), dtype=torch.uint8, device=data.device)
-    totals = torch.empty((B,), dtype=torch.int32, device=data.device)
-    ok = torch.empty((B,), dtype=torch.bool, device=data.device)
+    out, totals, ok = empty_outputs(B, N, data.device)
     if B:
         with torch.cuda.device(data.device):
             stream = torch.cuda.current_stream(data.device).cuda_stream
             _build.launch("lz4_encode",
                           (data.data_ptr(), lens.data_ptr(), out.data_ptr(),
                            totals.data_ptr(), ok.data_ptr()),
-                          (B, N, CAP), stream)
+                          (B, N, out.shape[1]), stream)
         launches += 1
     return out, totals, ok
 
@@ -86,38 +122,14 @@ def encode_batch_window(data: torch.Tensor, lens: torch.Tensor,
     On CUDA tensors it launches K2b on the current stream without
     synchronising; on CPU tensors it runs the plain version."""
     global window_launches
-    if data.dim() != 2 or data.dtype != torch.uint8:
-        raise ValueError("data must be a (R, N) uint8 tensor")
-    R, N = data.shape
-    if N % 4 or N > MAX_ROW:
-        raise ValueError(f"row width {N}: needs N % 4 == 0 and N <= {MAX_ROW}")
-    if windows.dim() != 2 or windows.dtype != torch.uint8:
-        raise ValueError("windows must be a (G, D) uint8 tensor")
-    G, D = windows.shape
-    if (chunks < 1 or G * chunks != R or D % 4 or D > MAX_WINDOW
-            or (chunks > 1 and D != N) or wstride < 1):
-        raise ValueError(f"windows {tuple(windows.shape)} for {R} rows of "
-                         f"{N} bytes in groups of {chunks}, wstride "
-                         f"{wstride}: need R == G * chunks, D % 4 == 0, "
-                         f"D <= {MAX_WINDOW}, D == N when chunks > 1")
-    for name, t in (("lens", lens), ("wlens", wlens)):
-        if (t.shape != (R,) or t.dtype != torch.int32
-                or t.device != data.device):
-            raise ValueError(f"{name} must be a (R,) int32 tensor on data's "
-                             "device")
-    if windows.device != data.device:
-        raise ValueError("windows must be on data's device")
+    R, N = check_rows(data, lens)
+    D = check_windows(data, windows, wlens, chunks, wstride)
     if data.device.type == "cpu":
         return encode_batch_window_plain(data, lens, windows, wlens, wstride,
                                          chunks)
-    if data.device.type != "cuda":
-        raise ValueError(f"unsupported device {data.device}")
     data, lens = data.contiguous(), lens.contiguous()
     windows, wlens = windows.contiguous(), wlens.contiguous()
-    CAP = out_width(N)
-    out = torch.empty((R, CAP), dtype=torch.uint8, device=data.device)
-    totals = torch.empty((R,), dtype=torch.int32, device=data.device)
-    ok = torch.empty((R,), dtype=torch.bool, device=data.device)
+    out, totals, ok = empty_outputs(R, N, data.device)
     if R:
         with torch.cuda.device(data.device):
             stream = torch.cuda.current_stream(data.device).cuda_stream
@@ -125,7 +137,7 @@ def encode_batch_window(data: torch.Tensor, lens: torch.Tensor,
                           (data.data_ptr(), lens.data_ptr(),
                            windows.data_ptr(), wlens.data_ptr(),
                            out.data_ptr(), totals.data_ptr(), ok.data_ptr()),
-                          (R, N, D, chunks, wstride, CAP), stream)
+                          (R, N, D, chunks, wstride, out.shape[1]), stream)
         window_launches += 1
     return out, totals, ok
 
@@ -134,11 +146,12 @@ def encode_batch_window(data: torch.Tensor, lens: torch.Tensor,
 # plain version: the same parse over Python bytes, one row at a time
 # ---------------------------------------------------------------------------
 
-def _words(row: bytes) -> tuple[np.ndarray, np.ndarray]:
+def _words(row: bytes, hash_log: int = HASH_LOG
+           ) -> tuple[np.ndarray, np.ndarray]:
     """Little-endian u32 at every byte of the row, and its hash."""
     a = np.frombuffer(row + b"\0\0\0", dtype=np.uint8).astype(np.uint64)
     v = a[:-3] | (a[1:-2] << 8) | (a[2:-1] << 16) | (a[3:] << 24)
-    h = ((v * HASH_MUL) & 0xFFFFFFFF) >> (32 - HASH_LOG)
+    h = ((v * HASH_MUL) & 0xFFFFFFFF) >> (32 - hash_log)
     return v, h
 
 
@@ -233,6 +246,14 @@ def encode_row_plain(row: bytes, n: int, N: int, window: bytes = b"",
         tab[hashes[min(nip - 2, clip)]] = nip - 1
         ip = anchor = nip
         overflow = not roomy or len(o) > OT - 16
+    return _finish(c, o, OT, anchor, end, n, overflow)
+
+
+def _finish(c: bytes, o: bytearray, OT: int, anchor: int, end: int, n: int,
+            overflow: bool) -> tuple[bytes, int, bool]:
+    """Append the final literals [anchor, end) after a parse: (stream,
+    total, ok). An overflow, or no room for the literals, gives total OT and
+    ok False, as the kernels do."""
     rest = end - anchor
     if overflow or len(o) + rest + rest // 255 + 16 > OT \
             or not _emit(c, o, OT, anchor, end, 0, 0):
@@ -240,24 +261,36 @@ def encode_row_plain(row: bytes, n: int, N: int, window: bytes = b"",
     return bytes(o), len(o), len(o) < n
 
 
-def _fill(out, totals, ok, i: int, res) -> None:
-    s, total, good = res
-    out.numpy()[i, :len(s)] = np.frombuffer(s, dtype=np.uint8)
-    totals[i] = total
-    ok[i] = good
+def plain_batch(data: torch.Tensor, lens: torch.Tensor, row_fn,
+                windows: torch.Tensor | None = None,
+                wlens: torch.Tensor | None = None, chunks: int = 1):
+    """(out, totals, ok) of a plain version: row_fn(row, n, N) over each
+    row, or row_fn(row, n, N, window, wlen) with windows, where row r takes
+    row r - 1 as its window when r % chunks > 0, else windows[r //
+    chunks]."""
+    R, N = data.shape
+    d = data.numpy()
+    out = torch.zeros((R, out_width(N)), dtype=torch.uint8)
+    totals = torch.zeros((R,), dtype=torch.int32)
+    ok = torch.zeros((R,), dtype=torch.bool)
+    wl = None if wlens is None else wlens.tolist()
+    for r, n in enumerate(lens.tolist()):
+        if windows is None:
+            s, total, good = row_fn(d[r].tobytes(), n, N)
+        else:
+            win = d[r - 1] if r % chunks else windows.numpy()[r // chunks]
+            s, total, good = row_fn(d[r].tobytes(), n, N, win.tobytes(),
+                                    wl[r])
+        out.numpy()[r, :len(s)] = np.frombuffer(s, dtype=np.uint8)
+        totals[r] = total
+        ok[r] = good
+    return out, totals, ok
 
 
 def encode_batch_plain(data: torch.Tensor, lens: torch.Tensor):
     """Plain version of encode_batch (same signature and results) on CPU
     tensors."""
-    B, N = data.shape
-    d = data.numpy()
-    out = torch.zeros((B, out_width(N)), dtype=torch.uint8)
-    totals = torch.zeros((B,), dtype=torch.int32)
-    ok = torch.zeros((B,), dtype=torch.bool)
-    for i, n in enumerate(lens.tolist()):
-        _fill(out, totals, ok, i, encode_row_plain(d[i].tobytes(), n, N))
-    return out, totals, ok
+    return plain_batch(data, lens, encode_row_plain)
 
 
 def encode_batch_window_plain(data: torch.Tensor, lens: torch.Tensor,
@@ -265,13 +298,6 @@ def encode_batch_window_plain(data: torch.Tensor, lens: torch.Tensor,
                               wstride: int = 1, chunks: int = 1):
     """Plain version of encode_batch_window (same signature and results) on
     CPU tensors."""
-    R, N = data.shape
-    d, w = data.numpy(), windows.numpy()
-    out = torch.zeros((R, out_width(N)), dtype=torch.uint8)
-    totals = torch.zeros((R,), dtype=torch.int32)
-    ok = torch.zeros((R,), dtype=torch.bool)
-    for r, (n, wl) in enumerate(zip(lens.tolist(), wlens.tolist())):
-        win = d[r - 1] if r % chunks else w[r // chunks]
-        _fill(out, totals, ok, r, encode_row_plain(
-            d[r].tobytes(), n, N, win.tobytes(), wl, wstride))
-    return out, totals, ok
+    return plain_batch(data, lens,
+                       functools.partial(encode_row_plain, wstride=wstride),
+                       windows, wlens, chunks)

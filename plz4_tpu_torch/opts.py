@@ -66,11 +66,11 @@ class Options:
     dictionary: Optional[bytes] = None
     worker_pool: Optional[object] = None  # object with submit(fn) -> future
     # "native" | "device" | "auto". backend="device" runs the block codec
-    # as CUDA kernels (parallel/batch.py). This port covers the greedy
-    # kernels: levels 1-2, every block size (blocks over 64 KiB as 64 KiB
-    # chunks and records), dictionaries and linked blocks, no block
-    # checksums; check_device() refuses the rest with NotImplementedError
-    # naming the ROADMAP item that ports it.
+    # as CUDA kernels (parallel/batch.py): levels 1-12 (greedy, depth-2 and
+    # depth-4 chain, deep hash chain), every block size (blocks over 64 KiB
+    # as 64 KiB chunks and records), dictionaries and linked blocks. Block
+    # checksums are not ported yet: check_device() refuses them with
+    # NotImplementedError naming the ROADMAP item that ports them.
     backend: str = "auto"
     # write-side
     level: int = 1
@@ -120,10 +120,6 @@ class Options:
         refuses frames with block checksums when it meets them."""
         if not write:
             return
-        if self.level > 2:
-            raise NotImplementedError(
-                f"device backend: level {self.level} > 2 (ROADMAP items "
-                "9-10)")
         if self.block_checksum:
             raise NotImplementedError(
                 "device backend: block checksums (ROADMAP item 7)")

@@ -11,9 +11,13 @@ stream behind an event. Pending.result() is the only point that waits.
 The engine keeps two batches in flight, so a batch's staging buffers go
 back to the pool only at its result() or discard().
 
+The level picks the encode kernel, as in the JAX package's device ladder
+(dispatch_encode, dispatch_encode_dict): greedy at levels 1-2 (K2a, or K2b
+after a window), the depth-2 chain at 3-7 (K2c), the depth-4 chain at 8
+(K2d) and the deep hash-chain finder at 9-12 (K4, walk budget _DEEP_TRIES).
 Blocks over 64 KiB go to large.py as 64 KiB chunks (encode) and records
 (decode). Windows (dictionaries and linked predecessors) go to the
-window-prefix kernels: K2b to encode, K3 to decode.
+window-prefix variants of the encode kernels, and to K3 to decode.
 
 On device="cpu" the same layer runs the kernels' plain versions
 synchronously (tests).
@@ -30,10 +34,45 @@ import torch
 from .. import errors as zerr
 from ..ops import decode as dec_ops
 from ..ops import encode as enc_ops
+from ..ops import encode_deep as deep_ops
+from ..ops import encode_mid as mid_ops
 
 EMPTY_BLOCK = b"\x00"  # 1-byte literals-only token: decodes to b""
 MAX_BLOCK = enc_ops.MAX_ROW  # widest block the kernels take (64 KiB)
 WINDOW = enc_ops.MAX_WINDOW  # window row width D of the dictionary paths
+
+
+# deep-tier chain-walk budget per level (the JAX package's device ladder);
+# levels above 12 take 32
+_DEEP_TRIES = {9: 2, 10: 8, 11: 16, 12: 32}
+
+
+def dispatch_encode(data, lens, level: int):
+    """The encode kernel of `level` over plain rows."""
+    if level <= 2:
+        return enc_ops.encode_batch(data, lens)
+    if level <= 8:
+        return mid_ops.encode_batch_mid(data, lens, depth4=level >= 8)
+    return deep_ops.encode_batch_deep(data, lens,
+                                      tries=_DEEP_TRIES.get(level, 32))
+
+
+def dispatch_encode_dict(data, lens, windows, wlens, level: int,
+                         wstride: int = 1, chunks: int = 1):
+    """The encode kernel of `level` over rows after a window prefix, shared
+    by the dict branch below and the large-block chunk path (large.py).
+    wstride > 1 strides the window preload of the greedy and chain kernels
+    (large-block chunks); the deep kernel inserts every window position."""
+    if level <= 2:
+        return enc_ops.encode_batch_window(data, lens, windows, wlens,
+                                           wstride, chunks)
+    if level <= 8:
+        return mid_ops.encode_batch_mid_window(
+            data, lens, windows, wlens, depth4=level >= 8, wstride=wstride,
+            chunks=chunks)
+    return deep_ops.encode_batch_deep_window(
+        data, lens, windows, wlens, tries=_DEEP_TRIES.get(level, 32),
+        chunks=chunks)
 
 
 def _pow2(n: int) -> int:
@@ -160,10 +199,9 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
     dictionary): blocks still encode in parallel because windows were
     snapshotted before dispatch (reference: async/writer.go:412-437).
     Returns [(stored_bytes, uncompressed_flag)] in order, applying the
-    incompressible-fallback contract per block. Levels 1-2 run the greedy
-    kernels (K2a, or K2b with windows and for the chunks of blocks over
-    64 KiB); device block checksums and higher levels are not ported yet
-    and raise NotImplementedError.
+    incompressible-fallback contract per block. The level picks the kernel
+    (dispatch_encode); device block checksums are not ported yet and raise
+    NotImplementedError.
     """
     if not blocks:
         return Pending(list, ())
@@ -171,10 +209,6 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
     for blk in blocks:
         if len(blk) > block_size:
             raise zerr.ErrSrcSize
-    if level > 2:
-        raise NotImplementedError(
-            f"device encode at level {level} > 2, with or without a window "
-            "(ROADMAP items 9-10)")
     if with_checksums:
         raise NotImplementedError(
             "device block checksums (ROADMAP item 7)")
@@ -203,7 +237,7 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
     staging = [arr, lens]
     if dicts is not None and any(d for d in dicts):
         # right-aligned (B, 64 KiB) windows, each row's usable length in
-        # wlens: K2b with every window position seeded (wstride 1)
+        # wlens; every window position seeds the tables (wstride 1)
         darr = _pool.take((B, WINDOW), torch.uint8, pinned)
         dlens = _pool.take((B,), torch.int32, pinned)
         da, dl = darr.numpy(), dlens.numpy()
@@ -215,10 +249,12 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
                 da[i, WINDOW - len(d):] = np.frombuffer(d, dtype=np.uint8)
                 dl[i] = len(d)
         staging += [darr, dlens]
-        outs_h, event = _dispatch(enc_ops.encode_batch_window,
-                                  (arr, lens, darr, dlens), dev)
+        outs_h, event = _dispatch(dispatch_encode_dict,
+                                  (arr, lens, darr, dlens), dev,
+                                  extra=(level,))
     else:
-        outs_h, event = _dispatch(enc_ops.encode_batch, (arr, lens), dev)
+        outs_h, event = _dispatch(dispatch_encode, (arr, lens), dev,
+                                  extra=(level,))
     out, totals, compressible = outs_h
 
     def assemble():

@@ -6,10 +6,11 @@ descriptor/index.go:92-125, plz4_opts.go:238-255). A large block is
 handled as K chunks of 64 KiB:
 
   * encode: every chunk encodes independently (in parallel on the device)
-    through K2b, the window-prefix encode kernel, with the previous chunk
-    as its window. The chunk span equals the LZ4 window, so [prev|cur]
-    covers every position's full 64 KiB reach and the chunk streams hold
-    the matches a monolithic encoder could use. The native stitcher
+    through the level's window-prefix encode kernel (K2b, K2c/K2d or K4:
+    batch.dispatch_encode_dict), with the previous chunk as its window.
+    The chunk span equals the LZ4 window, so [prev|cur] covers every
+    position's full 64 KiB reach and the chunk streams hold the matches a
+    monolithic encoder could use. The native stitcher
     (native.stitch_chunks) then merges the chunk streams into ONE standard
     LZ4 block, carrying trailing literal runs across boundaries.
 
@@ -34,7 +35,6 @@ import torch
 from .. import errors as zerr
 from .. import native
 from ..ops import decode as dec_ops
-from ..ops import encode as enc_ops
 
 CHUNK = 65536
 # decode-record input slice cap: 64 KiB of literals + their length
@@ -42,16 +42,19 @@ CHUNK = 65536
 # match/literal run costs <= 4 MiB/255 ~= 16450 ext bytes, charged to the
 # record where its token lives) + headers/slack
 CHUNK_IN = 83968
-CHUNK_WSTRIDE = 2  # window preload stride of chunk rows (the reference's)
+# window preload stride of chunk rows (the reference's); the deep kernel
+# has none
+CHUNK_WSTRIDE = 2
 
 host_decodes = 0  # blocks decoded on the host: a record over CHUNK_IN
 
 
 def stage_chunks(blocks, dicts, a, ln, wl, da) -> None:
-    """Fill K2b's chunk-row operands for large blocks: a (B, K, CHUNK)
-    rows, ln (B, K) chunk lengths, wl (B, K) usable window bytes and da
-    (B, CHUNK) each block's right-aligned window of chunk 0 (its dictionary
-    or linked predecessor); rows past len(blocks) stay empty."""
+    """Fill the window encode kernels' chunk-row operands for large blocks:
+    a (B, K, CHUNK) rows, ln (B, K) chunk lengths, wl (B, K) usable window
+    bytes and da (B, CHUNK) each block's right-aligned window of chunk 0
+    (its dictionary or linked predecessor); rows past len(blocks) stay
+    empty."""
     a.fill(0)
     ln.fill(0)
     wl.fill(0)
@@ -130,8 +133,8 @@ def encode_large_begin(blocks, block_size: int, level: int = 1,
                  arr.numpy().reshape(B, K, CHUNK), lens.numpy().reshape(B, K),
                  wlens.numpy().reshape(B, K), d0.numpy())
     outs_h, event = batch_mod._dispatch(
-        enc_ops.encode_batch_window, (arr, lens, d0, wlens), dev,
-        extra=(CHUNK_WSTRIDE, K))
+        batch_mod.dispatch_encode_dict, (arr, lens, d0, wlens), dev,
+        extra=(level, CHUNK_WSTRIDE, K))
     out, totals, _ = outs_h
 
     def assemble():

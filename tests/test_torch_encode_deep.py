@@ -1,0 +1,415 @@
+"""Port K4 (deep hash-chain block encode with lazy matching, device levels
+9-12): plz4_tpu_torch.ops.encode_deep against the JAX package's Pallas
+kernel (encode_pallas.encode_batch_pallas_deep and
+encode_batch_pallas_deep_dict) in interpret mode.
+
+Byte-exact contract, as for K2a: the same ok and total per row, and the
+same stream bytes [0, total) where ok holds, at walk budgets 2, 8, 16 and
+32. Both of the Pallas kernel's chain variants are covered: plain rows and
+small windows take the i32 chain with 2^15 heads; the batch layer's 64 KiB
+windows (dictionaries, linked blocks, large-block chunk rows) take the
+u16-delta chain with 2^14 heads and the window cut to 32 KiB, and a 16 KiB
+window takes 2^14 heads without the cut. The port runs one u32 chain for
+both. The plain version and the CUDA kernel's row body built with g++ are
+each held to the Pallas kernel; tests/test_torch_gpu.py holds the CUDA
+kernel to the plain version.
+"""
+
+import functools
+import os
+import random
+import shutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from plz4_tpu.ops import encode_pallas
+from plz4_tpu.parallel import batch as tpu_batch
+from plz4_tpu_torch import native
+from plz4_tpu_torch.ops import _build, encode, encode_deep, encode_mid
+from plz4_tpu_torch.parallel import batch
+
+from conftest import make_compressible, make_incompressible
+
+N = D = 65536
+TRIES = (2, 8, 16, 32)
+
+
+def _shapes() -> dict:
+    """The deep-kernel shapes of tests/test_pallas_kernels.py: edges, mixed
+    fuzz, boundary shapes, and runs longer than the lazy cap."""
+    out = {"zeros": b"\x00" * 3000, "one": b"a", "short13": b"abcabcabcabca",
+           "period4": b"abcd" * 700,
+           "runs": b"A" * 500 + b"xyz" * 100 + b"B" * 800,
+           "empty": b"", "n12": b"abcabcabcabc",
+           "lazy-cap-runs": (b"q" * 300 + make_compressible(200, seed=5)
+                             + b"xy" * 150 + b"z" * 90)}
+    rng = random.Random(0)
+    for seed in range(8):
+        rng.seed(seed)
+        parts = []
+        for _ in range(rng.randint(1, 5)):
+            k = rng.randint(0, 3)
+            if k == 0:
+                parts.append(make_compressible(rng.randint(1, 2000),
+                                               seed=seed * 7 + 1))
+            elif k == 1:
+                parts.append(make_incompressible(rng.randint(1, 600),
+                                                 seed=seed * 7 + 2))
+            elif k == 2:
+                parts.append(bytes([rng.randint(0, 255)])
+                             * rng.randint(1, 700))
+            else:
+                parts.append((make_incompressible(rng.randint(2, 9),
+                                                  seed=seed * 7 + 3)
+                              * 300)[: rng.randint(1, 900)])
+        out[f"fuzz{seed}"] = b"".join(parts)
+    rng = random.Random(99)
+    for seed in range(12):
+        rng.seed(seed)
+        shape = seed % 6
+        if shape == 0:
+            data = make_compressible(2000, seed=seed) + b"\x00" * (12 + seed)
+        elif shape == 1:
+            data = b"\x00" * (1500 + seed) + make_incompressible(17, seed=seed)
+        elif shape == 2:
+            p = make_incompressible(3 + seed % 14, seed=seed)
+            data = (p * 700)[: 2000 + seed]
+        elif shape == 3:
+            data = make_compressible(1500, seed=seed)
+            data = data + data[-(5 + seed % 8):]
+        elif shape == 4:
+            data = b"".join(bytes([rng.randrange(256)])
+                            * rng.randrange(1, 40) for _ in range(150))
+        else:
+            data = make_compressible(3000, seed=seed)[: 2993 + seed % 9]
+        out[f"boundary{seed}"] = data
+    return out
+
+
+SHAPES = _shapes()
+SMALL_N = 12288  # fits every shape
+FULL = {"vocab64k": make_compressible(N, seed=2),
+        "period7": (make_incompressible(7, seed=2) * (N // 7 + 1))[:N],
+        "random64k": make_incompressible(N, seed=3)}
+
+
+def _window_cases() -> dict:
+    """name -> (block, window row of D bytes, usable window bytes)."""
+    dict_ = make_compressible(D, seed=31)
+    text = make_compressible(N, seed=32)
+    noise = make_incompressible(D, seed=34)
+    frag = b"".join(noise[a:a + 40] + b"\x01\x02"
+                    for a in range(0, 40000, 97))[:N]
+    garbage = make_incompressible(D, seed=1)  # below first: never read
+    return {
+        "full": (text, dict_, D),
+        "dict-fragments": (frag, noise, D),
+        "partial-40000": (frag[:30000], garbage[:D - 40000] + noise[:40000],
+                          40000),
+        "partial-odd": (frag[:30000], garbage[:D - 1001] + noise[-1001:],
+                        1001),
+        "empty-window": (text, garbage, 0),
+        "short-block": (dict_[-5000:-4900], dict_, D),
+        "one": (b"a", dict_, D),
+        "empty-block": (b"", dict_, D),
+        "zeros": (b"\x00" * N, b"\x00" * D, D),
+        "period7-after-itself": ((make_incompressible(7, seed=4) * 9363)[:N],
+                                 (make_incompressible(7, seed=4)
+                                  * 9363)[:D], D),
+    }
+
+
+WINDOW_CASES = _window_cases()
+
+
+def _rows(payloads, width):
+    rows = np.zeros((len(payloads), width), np.uint8)
+    lens = np.array([len(p) for p in payloads], np.int32)
+    for i, p in enumerate(payloads):
+        rows[i, :len(p)] = np.frombuffer(p, np.uint8)
+    return rows, lens
+
+
+def _np(res):
+    return tuple(np.asarray(x) for x in res)
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+def _assert_same(ref, got, i):
+    (ro, rt, rk), (go, gt, gk) = ref, got
+    assert int(gt[i]) == int(rt[i])
+    assert bool(gk[i]) == bool(rk[i])
+    if rk[i]:
+        t = int(rt[i])
+        assert go[i, :t].tobytes() == ro[i, :t].tobytes()
+
+
+@functools.lru_cache(maxsize=None)
+def _plain(which: str, tries: int):
+    """Plain rows: the small shapes at SMALL_N or the full 64 KiB rows."""
+    pays = SHAPES if which == "small" else FULL
+    rows, lens = _rows(list(pays.values()),
+                       SMALL_N if which == "small" else N)
+    ref = _np(encode_pallas.encode_batch_pallas_deep(
+        jnp.asarray(rows), jnp.asarray(lens), interpret=True, tries=tries))
+    got = _np(encode_deep.encode_batch_deep(*_t(rows, lens), tries))
+    return (rows, lens), ref, got
+
+
+@functools.lru_cache(maxsize=None)
+def _windows(names: tuple, width: int, tries: int):
+    """Rows of WINDOW_CASES after windows cut to their last `width`
+    bytes."""
+    rows, lens = _rows([WINDOW_CASES[n][0] for n in names], N)
+    wins = np.stack([np.frombuffer(WINDOW_CASES[n][1][D - width:], np.uint8)
+                     for n in names])
+    wlens = np.array([min(WINDOW_CASES[n][2], width) for n in names],
+                     np.int32)
+    args = (rows, lens, wins, wlens)
+    ref = _np(encode_pallas.encode_batch_pallas_deep_dict(
+        *(jnp.asarray(a) for a in args), interpret=True, tries=tries))
+    got = _np(encode_deep.encode_batch_deep_window(*_t(*args), tries))
+    return args, ref, got
+
+
+@pytest.fixture
+def host_lib():
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not installed")
+    return _build.load_host()
+
+
+def _host_encode(lib, rows, lens, wins, wlens, tries, chunks=1):
+    """The CUDA kernel's row body (csrc/lz4_encode_deep.cuh) built with g++,
+    routed as the wrapper routes it; wins None is a plain batch."""
+    R, width = rows.shape
+    Dw = None if wins is None else wins.shape[1]
+    hash_log, Dc = encode_deep.deep_route(width, Dw)
+    CAP = encode.out_width(width)
+    out = np.zeros((R, CAP), np.uint8)
+    tot = np.zeros(R, np.int32)
+    ok = np.zeros(R, np.uint8)
+    lib.lz4t_host_encode_deep(
+        rows.ctypes.data, lens.ctypes.data,
+        0 if wins is None else wins.ctypes.data,
+        0 if wlens is None else wlens.ctypes.data, out.ctypes.data,
+        tot.ctypes.data, ok.ctypes.data, R, width, Dw or 0, chunks, Dc, CAP,
+        tries, hash_log)
+    return out, tot, ok
+
+
+@pytest.mark.parametrize("tries", TRIES)
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_small_shapes_match_pallas(name, tries, host_lib):
+    (rows, lens), ref, got = _plain("small", tries)
+    i = list(SHAPES).index(name)
+    _assert_same(ref, got, i)
+    _assert_same(ref, _host_encode(host_lib, rows, lens, None, None, tries),
+                 i)
+    if got[2][i]:
+        assert native.decompress(got[0][i, :got[1][i]].tobytes(),
+                                 len(SHAPES[name])) == SHAPES[name]
+
+
+@pytest.mark.parametrize("tries", TRIES)
+@pytest.mark.parametrize("name", list(FULL))
+def test_full_rows_match_pallas(name, tries, host_lib):
+    (rows, lens), ref, got = _plain("full", tries)
+    i = list(FULL).index(name)
+    _assert_same(ref, got, i)
+    _assert_same(ref, _host_encode(host_lib, rows, lens, None, None, tries),
+                 i)
+
+
+def _window_params():
+    return [pytest.param(tries, name, id=f"{name}-t{tries}")
+            for tries in (2, 32) for name in WINDOW_CASES]
+
+
+@pytest.mark.parametrize("tries,name", _window_params())
+def test_window_rows_match_pallas(tries, name, host_lib):
+    """64 KiB windows: the u16-chain route, 2^14 heads, the last 32 KiB."""
+    names = tuple(WINDOW_CASES)
+    args, ref, got = _windows(names, D, tries)
+    i = names.index(name)
+    _assert_same(ref, got, i)
+    _assert_same(ref, _host_encode(host_lib, *args, tries), i)
+    if got[2][i]:
+        blk, win, wl = WINDOW_CASES[name]
+        wl = min(wl, encode_deep.WINDOW_CUT)
+        assert native.decompress(got[0][i, :got[1][i]].tobytes(), N,
+                                 dict_=win[D - wl:]) == blk
+
+
+SIXTEEN = ("full", "partial-odd", "dict-fragments")
+
+
+@pytest.mark.parametrize("name", SIXTEEN)
+def test_16k_window_takes_hash_log_14_uncut(name, host_lib):
+    assert encode_deep.deep_route(N, 16384) == (14, 16384)
+    args, ref, got = _windows(SIXTEEN, 16384, 16)
+    i = SIXTEEN.index(name)
+    _assert_same(ref, got, i)
+    _assert_same(ref, _host_encode(host_lib, *args, 16), i)
+
+
+SMALL_WIN = 4096
+
+
+@functools.lru_cache(maxsize=None)
+def _small_windows(tries: int):
+    """Small shapes after a 4 KiB window (the i32 chain, 2^15 heads)."""
+    dict_ = make_compressible(SMALL_WIN, seed=71)
+    names = list(SHAPES)[:12]
+    rows, lens = _rows([dict_[100:900] + SHAPES[n] for n in names], SMALL_N)
+    wins = np.tile(np.frombuffer(dict_, np.uint8), (len(names), 1))
+    wlens = np.array([SMALL_WIN if i % 3 else 1500 for i in range(len(names))],
+                     np.int32)
+    args = (rows, lens, wins, wlens)
+    ref = _np(encode_pallas.encode_batch_pallas_deep_dict(
+        *(jnp.asarray(a) for a in args), interpret=True, tries=tries))
+    got = _np(encode_deep.encode_batch_deep_window(*_t(*args), tries))
+    return args, ref, got
+
+
+@pytest.mark.parametrize("tries", (8, 16))
+@pytest.mark.parametrize("r", range(12))
+def test_small_windows_take_hash_log_15(r, tries, host_lib):
+    assert encode_deep.deep_route(SMALL_N, SMALL_WIN) == (15, SMALL_WIN)
+    args, ref, got = _small_windows(tries)
+    _assert_same(ref, got, r)
+    _assert_same(ref, _host_encode(host_lib, *args, tries), r)
+
+
+# ---------------------------------------------------------------------------
+# chunk rows of large blocks: the last 32 KiB of the previous row, in place
+# ---------------------------------------------------------------------------
+
+K = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _chunks():
+    """Two 256 KiB-class blocks as K chunk rows each, the first after a
+    777-byte dictionary, at level 9's walk budget: the port's grouped
+    layout against the Pallas kernel on the concatenated windows the JAX
+    package builds."""
+    b0 = make_compressible(K * N, seed=41)
+    b1 = make_compressible(2 * N + N // 2, seed=42)
+    d0 = np.zeros((2, D), np.uint8)
+    d0[0, D - 777:] = np.frombuffer(make_compressible(777, seed=43), np.uint8)
+    rows = np.zeros((2 * K, N), np.uint8)
+    lens = np.zeros(2 * K, np.int32)
+    wlens = np.zeros(2 * K, np.int32)
+    for j, blk in enumerate((b0, b1)):
+        for k in range(K):
+            part = blk[k * N:(k + 1) * N]
+            rows[j * K + k, :len(part)] = np.frombuffer(part, np.uint8)
+            lens[j * K + k] = len(part)
+            if part:
+                wlens[j * K + k] = N if k else (777 if j == 0 else 0)
+    wins = np.concatenate([d0[:, None, :], rows.reshape(2, K, N)[:, :-1, :]],
+                          axis=1).reshape(2 * K, D)
+    ref = _np(encode_pallas.encode_batch_pallas_deep_dict(
+        jnp.asarray(rows), jnp.asarray(lens), jnp.asarray(wins),
+        jnp.asarray(wlens), interpret=True, tries=2))
+    got = _np(encode_deep.encode_batch_deep_window(
+        *_t(rows, lens, d0, wlens), 2, chunks=K))
+    return (rows, lens, d0, wlens), ref, got
+
+
+@pytest.mark.parametrize("r", range(2 * K))
+def test_chunk_rows_match_pallas(r, host_lib):
+    args, ref, got = _chunks()
+    _assert_same(ref, got, r)
+    _assert_same(ref, _host_encode(host_lib, *args, 2, chunks=K), r)
+
+
+def test_chunk_streams_stitch_into_the_blocks():
+    (rows, lens, _, _), _, (out, tot, _) = _chunks()
+    for j in range(2):
+        n = int(lens[j * K:(j + 1) * K].sum())
+        blk = rows[j * K:(j + 1) * K].reshape(-1)[:n].tobytes()
+        streams = [out[j * K + k, :int(tot[j * K + k])].tobytes()
+                   for k in range(K) if lens[j * K + k]]
+        st = native.stitch_chunks(blk, N, streams)
+        d = b"" if j else make_compressible(777, seed=43)
+        assert native.decompress(st, n, dict_=d or None) == blk
+
+
+# ---------------------------------------------------------------------------
+# routing, constants, ladder
+# ---------------------------------------------------------------------------
+
+def test_route_matches_pallas_budget():
+    """deep_route against _deep_fits / _deep_fits_u16 and the dict
+    wrapper's 32 KiB cut, over row and window widths up to 64 KiB."""
+    for n in range(4, N + 1, 2044):
+        cap = encode.out_width(n)
+        want = 15 if encode_pallas._deep_fits(n + 8, cap) else None
+        got = encode_deep.deep_route(n, None)
+        assert got == (None if want is None else (15, 0)), n
+        for d in list(range(0, D + 1, 4092)) + [16384, 32768, D]:
+            if encode_pallas._deep_fits(d + n + 8, cap):
+                want = (15, d)
+            else:
+                du = min(d, 32768)
+                want = ((14, du) if encode_pallas._deep_fits_u16(
+                    du + n + 8, cap) else None)
+            assert encode_deep.deep_route(n, d) == want, (n, d)
+
+
+def test_depth4_fallbacks_are_unreachable_at_batch_shapes():
+    """The Pallas wrappers' depth-4 fallbacks need rows over 64 KiB: the
+    widest plain row and the widest row after the widest window still
+    route to the deep kernel (the route only shrinks as N and D shrink)."""
+    assert encode_deep.deep_route(encode.MAX_ROW, None) == (15, 0)
+    assert encode_deep.deep_route(encode.MAX_ROW, encode.MAX_WINDOW) \
+        == (14, 32768)
+    assert encode_deep.deep_route(2 * N, None) is None
+    assert encode_deep.deep_route(2 * N, D) is None
+
+
+def test_deep_constants_match_pallas():
+    assert encode_deep.DEEP_HASH_LOG == encode_pallas.DEEP_HASH_LOG
+    assert encode_deep.DEEP_HASH_LOG_U16 == encode_pallas.DEEP_HASH_LOG_U16
+    assert encode_deep.BW_MAX_ELEMS == encode_pallas._BW_MAX_ELEMS
+    assert batch._DEEP_TRIES == tpu_batch._DEEP_TRIES
+    # the lazy cap is the Pallas wrapper's default of PLZ4_DEEP_LAZYCAP
+    assert encode_deep.LAZY_CAP == 64
+
+
+def test_csrc_constants_match_python():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    csrc = os.path.join(root, "plz4_tpu_torch", "csrc")
+    deep = open(os.path.join(csrc, "lz4_encode_deep.cuh")).read()
+    mid = open(os.path.join(csrc, "lz4_encode_mid.cuh")).read()
+    assert f"#define LZ4T_DEEP_LAZY_CAP {encode_deep.LAZY_CAP}\n" in deep
+    assert f"#define LZ4T_DEEP_MIN_MATCH {encode_deep.MIN_MATCH}\n" in deep
+    assert f"#define LZ4T_MID_HASH_LOG {encode_mid.MID_HASH_LOG}\n" in mid
+
+
+def test_level_ladder_sizes_strictly_improve():
+    """The port's analog of tests/test_device_backend.py's ladder pin:
+    greedy, depth 2, depth 4 and the deep finder give strictly smaller
+    streams on the same text, wider walk budgets never larger ones, and
+    all decode."""
+    data = make_compressible(8000, seed=41)
+    rows, lens = _t(*_rows([data], 8000))
+    sizes = [encode.encode_batch(rows, lens),
+             encode_mid.encode_batch_mid(rows, lens),
+             encode_mid.encode_batch_mid(rows, lens, depth4=True)]
+    sizes += [encode_deep.encode_batch_deep(rows, lens, t) for t in TRIES]
+    for out, tot, ok in sizes:
+        assert bool(ok[0])
+        assert native.decompress(out[0, :int(tot[0])].numpy().tobytes(),
+                                 len(data)) == data
+    tots = [int(tot[0]) for _, tot, _ in sizes]
+    assert tots[0] > tots[1] > tots[2] > tots[3], tots
+    assert tots[3] >= tots[4] >= tots[5] >= tots[6], tots

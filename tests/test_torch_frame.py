@@ -1,6 +1,7 @@
 """The port's main path as a whole: a 64 KiB level-1 device frame, and the
 device options that the port covers or still refuses (the window paths'
-frame parity is in test_torch_frame_window.py).
+frame parity is in test_torch_frame_window.py, the level ladder's in
+test_torch_frame_levels.py).
 
 The reference frame comes from the JAX package's real Pallas path, run on
 the CPU in interpret mode (monkeypatched here; no JAX file changes). The
@@ -101,14 +102,25 @@ def test_corrupt_block_raises_on_device():
 
 
 @pytest.mark.parametrize("opts,item", [
-    (dict(level=3), "items 9-10"),
-    (dict(level=12), "items 9-10"),
     (dict(block_checksum=True), "item 7"),
-], ids=["level3", "level12", "block_checksum"])
+], ids=["block_checksum"])
 def test_uncovered_device_options_raise(opts, item):
     kw = dict(PORT) | opts
     with pytest.raises(NotImplementedError, match=item):
         plz4_tpu_torch.compress(DATA, **kw)
+
+
+@pytest.mark.parametrize("level", [3, 12], ids=["level3", "level12"])
+def test_device_levels_round_trip(level):
+    """Levels above 2 run on the device backend (the depth-2 chain K2c at
+    level 3, the deep hash-chain finder K4 at level 12) and give smaller
+    frames than level 1 that both decoders read; parity with the Pallas
+    path is in test_torch_frame_levels.py."""
+    frame = plz4_tpu_torch.compress(DATA, **(dict(PORT) | dict(level=level)))
+    assert len(frame) < len(_port_frame(True))
+    assert plz4_tpu_torch.decompress(frame, backend="device",
+                                     device="cpu") == DATA
+    assert plz4_tpu_torch.decompress(frame, backend="native") == DATA
 
 
 WINDOW_DICT = b"dictionary " * 20 + DATA[:3000]
@@ -193,11 +205,9 @@ def test_device_reader_decodes_dictionary_frame(idx):
 
 def test_batch_layer_refusals_leak_no_buffers():
     blocks = [b"abc" * 100]
-    for kw, item in [(dict(level=9), "items 9-10"),
-                     (dict(level=3, dicts=[b"window"]), "items 9-10"),
-                     (dict(with_checksums=True), "item 7")]:
-        with pytest.raises(NotImplementedError, match=item):
-            batch.encode_blocks_begin(blocks, 65536, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        batch.encode_blocks_begin(blocks, 65536, device="cpu",
+                                  with_checksums=True)
     with pytest.raises(NotImplementedError, match="item 7"):
         batch.decode_blocks_begin([(b"\x00", False)], 65536,
                                   checksums=[0], device="cpu")

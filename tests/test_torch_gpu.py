@@ -15,7 +15,7 @@ import torch
 
 import plz4_tpu_torch
 from plz4_tpu_torch import corpus, native
-from plz4_tpu_torch.ops import decode, encode
+from plz4_tpu_torch.ops import decode, encode, encode_deep, encode_mid
 from plz4_tpu_torch.parallel import large
 
 N = 65536
@@ -109,11 +109,12 @@ def _same_rows(kern, plain, counts):
         assert torch.equal(ko[i, :c], po[i, :c]), i
 
 
-@pytest.mark.gpu
-def test_encode_window_kernel_matches_plain(cuda):
+def _window_batches():
+    """(operands, keywords) of the window encode kernels: two large blocks
+    as grouped chunk rows (a 4-chunk block after a 1000-byte dictionary
+    and a 2.5-chunk block with none; windows read in place, wstride 2),
+    and rows with one window each (full, partial, empty; wstride 1)."""
     text = corpus.silesia_like(6 * N, seed=5)
-    # a 4-chunk block after a 1000-byte dictionary and a 2.5-chunk block
-    # with none: chunk rows, windows read in place (wstride 2)
     blocks = [text[:4 * N], text[4 * N:6 * N + N // 2]]
     a = torch.zeros((8, N), dtype=torch.uint8)
     ln = torch.zeros((8,), dtype=torch.int32)
@@ -122,18 +123,65 @@ def test_encode_window_kernel_matches_plain(cuda):
     large.stage_chunks(blocks, [text[-1000:], None], a.numpy().reshape(2, 4, N),
                        ln.numpy().reshape(2, 4), wl.numpy().reshape(2, 4),
                        da.numpy())
-    # and one window per row (wstride 1): full, partial, empty
     rows, lens = _rows([text[:N], text[N:N + 5000], b"hello" * 40], N)
     wins = torch.from_numpy(np.frombuffer(text[2 * N:5 * N], np.uint8)
                             .reshape(3, N).copy())
     wlens = torch.tensor([N, 777, 0], dtype=torch.int32)
-    for (d, l, w, wlen), kw in [((a, ln, da, wl), dict(wstride=2, chunks=4)),
-                                ((rows, lens, wins, wlens), dict())]:
+    return [((a, ln, da, wl), dict(wstride=2, chunks=4)),
+            ((rows, lens, wins, wlens), dict())]
+
+
+@pytest.mark.gpu
+def test_encode_window_kernel_matches_plain(cuda):
+    for (d, l, w, wlen), kw in _window_batches():
         before = encode.window_launches
         kern = encode.encode_batch_window(d.to(cuda), l.to(cuda), w.to(cuda),
                                           wlen.to(cuda), **kw)
         assert encode.window_launches == before + 1
         plain = encode.encode_batch_window_plain(d, l, w, wlen, **kw)
+        _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth4", [False, True], ids=["K2c", "K2d"])
+def test_encode_mid_kernel_matches_plain(cuda, depth4):
+    """Plain rows, chunk rows and window rows; depth 4 after the 64 KiB
+    windows keeps two of its tables in device memory."""
+    rows, lens = _rows(_payloads(), N)
+    before = encode_mid.launches
+    kern = encode_mid.encode_batch_mid(rows.to(cuda), lens.to(cuda), depth4)
+    assert encode_mid.launches == before + 1
+    plain = encode_mid.encode_batch_mid_plain(rows, lens, depth4)
+    _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
+    for (d, l, w, wlen), kw in _window_batches():
+        before = encode_mid.window_launches
+        kern = encode_mid.encode_batch_mid_window(
+            d.to(cuda), l.to(cuda), w.to(cuda), wlen.to(cuda), depth4, **kw)
+        assert encode_mid.window_launches == before + 1
+        plain = encode_mid.encode_batch_mid_window_plain(d, l, w, wlen,
+                                                         depth4, **kw)
+        _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tries", [2, 32])
+def test_encode_deep_kernel_matches_plain(cuda, tries):
+    """Plain rows (2^15 heads), chunk rows and window rows (2^14 heads, the
+    windows cut to their last 32 KiB; no preload stride)."""
+    rows, lens = _rows(_payloads(), N)
+    before = encode_deep.launches
+    kern = encode_deep.encode_batch_deep(rows.to(cuda), lens.to(cuda), tries)
+    assert encode_deep.launches == before + 1
+    plain = encode_deep.encode_batch_deep_plain(rows, lens, tries)
+    _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
+    for (d, l, w, wlen), kw in _window_batches():
+        kw.pop("wstride", None)
+        before = encode_deep.window_launches
+        kern = encode_deep.encode_batch_deep_window(
+            d.to(cuda), l.to(cuda), w.to(cuda), wlen.to(cuda), tries, **kw)
+        assert encode_deep.window_launches == before + 1
+        plain = encode_deep.encode_batch_deep_window_plain(d, l, w, wlen,
+                                                           tries, **kw)
         _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
 
 
@@ -204,3 +252,17 @@ def test_device_window_frame_matches_plain_frame(cuda, opts):
                                      dictionary=d) == data
     assert plz4_tpu_torch.decompress(frame, backend="native",
                                      dictionary=d) == data
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", [3, 8, 9, 12])
+@pytest.mark.parametrize("block", ["64KB", "4MB"])
+def test_device_level_frame_matches_plain_frame(cuda, level, block):
+    data = corpus.silesia_like(5 * N + 4321)
+    kw = dict(backend="device", level=level, device_batch=4)
+    if block == "64KB":
+        kw["block_size_idx"] = plz4_tpu_torch.BLOCK_IDX_64KB
+    frame = plz4_tpu_torch.compress(data, device="cuda", **kw)
+    assert frame == plz4_tpu_torch.compress(data, device="cpu", **kw)
+    assert plz4_tpu_torch.decompress(frame, backend="device") == data
+    assert plz4_tpu_torch.decompress(frame, backend="native") == data

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Where the port's main path spends its time, on one CUDA GPU.
 
-Runs plz4_tpu_torch.compress / decompress (backend="device", level 1,
-64 KiB blocks, or the default 4 MiB with --block 4M) over a silesia-like
-payload three ways: untraced (wall time), under torch.profiler (device
-time by kernel and copy, and the device's busy share of the wall time),
-and under cProfile (host time by Python function).
+Runs plz4_tpu_torch.compress / decompress (backend="device", level 1 or
+--level, 64 KiB blocks, or the default 4 MiB with --block 4M) over a
+silesia-like payload three ways: untraced (wall time), under torch.profiler
+(device time by kernel and copy, and the device's busy share of the wall
+time), and under cProfile (host time by Python function).
 
     python3 tools/profile_torch_main_path.py [--mib 64] [--seed 2003]
-        [--block 64K|256K|1M|4M]
+        [--block 64K|256K|1M|4M] [--level 1-12]
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=2003)
     ap.add_argument("--block", choices=["64K", "256K", "1M", "4M"],
                     default="64K")
+    ap.add_argument("--level", type=int, default=1, choices=range(1, 13))
     args = ap.parse_args()
 
     import torch
@@ -49,7 +50,7 @@ def main() -> int:
     data = corpus.silesia_like(args.mib << 20, seed=args.seed)
     idx = {"64K": plz4.BLOCK_IDX_64KB, "256K": plz4.BLOCK_IDX_256KB,
            "1M": plz4.BLOCK_IDX_1MB, "4M": plz4.BLOCK_IDX_4MB}[args.block]
-    opts = dict(backend="device", level=1, block_size_idx=idx)
+    opts = dict(backend="device", level=args.level, block_size_idx=idx)
 
     def enc():
         return plz4.compress(data, **opts)
@@ -76,7 +77,8 @@ def main() -> int:
         events = [e for e in prof.key_averages()
                   if e.self_device_time_total > 0]
         busy_us = sum(e.self_device_time_total for e in events)
-        print(f"\n== {name}, {args.block} blocks [{card}]: "
+        print(f"\n== {name}, {args.block} blocks, level {args.level} "
+              f"[{card}]: "
               f"{len(data) / 1e9 / wall:.3f} GB/s "
               f"untraced (median of 3, {wall * 1e3:.1f} ms); traced "
               f"{traced * 1e3:.1f} ms; device busy {busy_us / 1e3:.1f} ms "
