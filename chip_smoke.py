@@ -14,7 +14,14 @@ backend="device" and checks that they went through the kernels:
     256 MiB frame at level 9 (the deep hash-chain kernel K4) at 64 KiB and
     at 4 MiB blocks, and 32 MiB frames at levels 3 (K2c), 8 (K2d) and 12
     (K4), at level 8 with 4 MiB blocks, linked at level 6 and with a
-    dictionary at level 9.
+    dictionary at level 9;
+  * the whole-block codec at full width: the 256 MiB as 64 rows of 4 MiB
+    through one launch of the packed-word encode kernel K6b (greedy, and
+    the depth-2 chain for a level-8 request) and one of the packed-word
+    decode kernel K6a, framed as a standard 4 MiB frame;
+  * block checksums: a 256 MiB frame of 64 KiB blocks whose checksums are
+    hashed on the device by K7 on write and on read, and 32 MiB frames at
+    4 MiB blocks and with a dictionary.
 
     python3 chip_smoke.py
 
@@ -25,6 +32,7 @@ before it holds the per-kernel measurements as one JSON object.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -40,6 +48,8 @@ CHUNKS = BIG // BLOCK  # 64 KiB chunk rows per 4 MiB block
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate
 OPS_PER_BYTE = 16  # generous integer-op count of the serial parse
+XXH_OPS_PER_BYTE = 1.5  # xxh32: 6 integer ops per lane per 16-byte stripe
+WIDE = 256 << 10  # the packed-word kernels' row width held to plain
 # bench-corpus ratio (32 rows of 64 KiB) per device level, computed once
 # from the JAX package's Pallas kernels in interpret mode on the CPU
 # (encode_batch_pallas_mid / _deep over the same rows); the parse is
@@ -615,7 +625,7 @@ def main() -> int:
               f"{name}: the first 8 MiB frame equals the device=cpu frame")
 
     # ---- 11. K2c, K2d and K4 against their plain versions ---------------
-    from plz4_tpu_torch.ops import encode_deep, encode_mid
+    from plz4_tpu_torch.ops import encode_deep, encode_mid, encode_wide, xxh32
     from plz4_tpu_torch.parallel import batch
 
     main_host = tuple(torch.from_numpy(x) for x in rows_of(main_rows, BLOCK))
@@ -703,7 +713,9 @@ def main() -> int:
                 (encode_mid, "launches"), (encode_mid, "window_launches"),
                 (encode_deep, "launches"), (encode_deep, "window_launches"),
                 (decode, "launches"), (decode, "dict_launches"),
-                (decode, "record_launches")]
+                (decode, "record_launches"), (encode_wide, "launches"),
+                (encode_wide, "mid_launches"), (decode, "wide_launches"),
+                (xxh32, "launches")]
 
     def reset():
         for mod, attr in counters:
@@ -799,6 +811,290 @@ def main() -> int:
         print(f"{name} [{smi}]: encode {len(win_data) / 1e6 / t_e:.3f} GB/s, "
               f"frame ratio {len(win_data) / len(f):.4f}")
 
+    # ---- 15. K7 against its plain version and native.xxh32 --------------
+    def hash_both(host_args, seed, what, blocks):
+        """K7 and its plain version on the same rows, held to each other and
+        to native.xxh32 of each row's bytes. Returns (plain ms, err)."""
+        kern = xxh32.xxh32_batch(*[x.to(dev) for x in host_args], seed).cpu()
+        plain, p_ms = host_ms(lambda: xxh32.xxh32_batch_plain(*host_args,
+                                                              seed))
+        err = int((kern - plain).abs().max()) if len(kern) else 0
+        check(err == 0 and kern.tolist() == [native.xxh32(b, seed)
+                                             for b in blocks],
+              f"K7 equals plain and native.xxh32 on {what}, seed {seed:#x} "
+              f"(max abs err {err})")
+        return p_ms, err
+
+    k2a_out, k2a_tot = e_kern[0].cpu(), e_kern[1].cpu()
+    k2a_tot = k2a_tot.clamp(max=k2a_out.shape[1])
+    k2a_blocks = [k2a_out[i, :k2a_tot[i]].numpy().tobytes()
+                  for i in range(ROWS)]
+    edge_blocks = [main_data[:n] for n in range(41)] + [main_data[:BLOCK]]
+    edge_rows = tuple(torch.from_numpy(x)
+                      for x in rows_of(edge_blocks, BLOCK + 3))
+    k7_err = 0
+    for seed in (0, 0x9E3779B1):
+        p_ms, e1 = hash_both(main_host, seed, f"{ROWS} main-path rows",
+                             main_rows)
+        if seed == 0:
+            k7_plain_ms = p_ms
+        e2 = hash_both((k2a_out, k2a_tot), seed,
+                       f"K2a's {ROWS} output rows with their totals",
+                       k2a_blocks)[1]
+        e3 = hash_both(edge_rows, seed, "lengths 0-40 and 65,536 in rows of "
+                       "65,539 bytes", edge_blocks)[1]
+        k7_err = max(k7_err, e1, e2, e3)
+    main_dev = [x.to(dev) for x in main_host]
+    k7_ms = cuda_ms(lambda: xxh32.xxh32_batch(*main_dev), 20)
+    k7_bound = bound_ms(ROWS * BLOCK + 4 * ROWS + 8 * ROWS,
+                        XXH_OPS_PER_BYTE * ROWS * BLOCK)
+    print(f"K7 [{smi}]: {k7_ms:.4f} ms per {ROWS}-row batch of 64 KiB "
+          f"(bound {k7_bound[0]:.4f} ms by {k7_bound[1]}; plain "
+          f"{k7_plain_ms:.1f} ms)")
+    del main_dev
+
+    # ---- 16. K6b and K6a against their plain versions -------------------
+    wide_blocks = [main_data[i * WIDE:(i + 1) * WIDE] for i in range(8)]
+    w256 = tuple(torch.from_numpy(x) for x in rows_of(wide_blocks, WIDE))
+    w256_win = (torch.from_numpy(rows_of([dict64] * 8, BLOCK)[0]),
+                torch.tensor([BLOCK, 3000, 0, BLOCK, BLOCK, 517, BLOCK, 12],
+                             dtype=torch.int32))
+    big2 = tuple(torch.from_numpy(x) for x in rows_of(big_blocks, BIG))
+    rnd = np.random.default_rng(41)
+    # the first K6b width of each route (the byte-wide kernels take 4 bytes
+    # less): plain and after a 64 KiB window
+    edge_widths = {(False, 0): 101144, (True, 0): 109320,
+                   (False, BLOCK): 68440, (True, BLOCK): 76616}
+    k6b = {}  # mid -> (plain ms of 8 x 256 KiB, max err, plain of big2)
+    for mid_mode, name in ((False, "K6b greedy"), (True, "K6b mid")):
+        run = functools.partial(both, name, encode_wide.encode_batch_wide,
+                                encode_wide.encode_batch_wide_plain,
+                                mid=mid_mode)
+        _, k256, _, p_ms, e1 = run(w256, f"8 rows of {WIDE >> 10} KiB")
+        errs = [e1, run(w256 + w256_win, f"8 rows of {WIDE >> 10} KiB after "
+                        "full, partial and empty 64 KiB windows")[4]]
+        _, _, p_big, _, e3 = run(big2, "2 rows of 4 MiB")
+        errs.append(e3)
+        for (m, Dw), W in edge_widths.items():
+            if m != mid_mode:
+                continue
+            ea = rows_of([main_data[:W], rnd.integers(
+                0, 256, W, dtype=np.uint8).tobytes()], W)
+            args = tuple(torch.from_numpy(x) for x in ea)
+            if Dw:
+                args += (torch.from_numpy(rows_of([dict64] * 2, BLOCK)[0]),
+                         torch.tensor([BLOCK, 999], dtype=torch.int32))
+            errs.append(run(args, f"the first K6b width {W} after a "
+                                  f"{Dw}-byte window")[4])
+        k6b[mid_mode] = (p_ms, max(errs), p_big)
+        if not mid_mode:
+            k6b_256 = k256
+
+    def dec_wide_both(streams, cap, what):
+        C_ = max(16, (max(len(x) for x in streams) + 16 + 3) & ~3)
+        a, n = rows_of(streams, C_)
+        ha, hn = torch.from_numpy(a), torch.from_numpy(n)
+        kern = decode.decode_batch(ha.to(dev), hn.to(dev), cap)
+        torch.cuda.synchronize()
+        plain, p_ms = host_ms(lambda: decode.decode_batch_wide_plain(
+            ha, hn, cap))
+        okw = plain[2].numpy()
+        check(bool((kern[1].cpu().numpy() == plain[1].numpy()).all()
+                   and (kern[2].cpu().numpy() == okw).all()),
+              f"K6a ok/n_out equal plain on {what}")
+        err = max_err(kern, plain, np.where(okw, plain[1].numpy(), 0))
+        check(err == 0, f"K6a bytes [0, n_out) equal plain where ok on "
+                        f"{what} (max abs err {err})")
+        return plain, p_ms, err
+
+    wout, wtot, wok = (t.cpu() for t in k6b_256)
+    src256 = [b for i, b in enumerate(wide_blocks) if wok[i]] + wide_blocks
+    s256 = [wout[i, :wtot[i]].numpy().tobytes() for i in range(8) if wok[i]]
+    s256 += [native.compress(b, level=1) for b in wide_blocks]
+    lit_run = WIDE + 4000  # a literal run past out_cap after 9 bytes
+    bad256 = [bytes([0x14, 0x41, 1, 0, 0xF0]) + b"\xff" * (lit_run // 255)
+              + bytes([lit_run % 255]) + b"b" * 64, bytes([0x04, 0, 0]),
+              bytes([0x14, 0x41, 1, 0])]
+    corrupt256 = corrupt_streams(s256, seed=0x6A)
+    p6a, _, e6a_1 = dec_wide_both(s256 + bad256 + corrupt256, WIDE,
+                                  f"{len(s256)} K6b and native streams, "
+                                  "bad-literal, zero-offset, match-ended, "
+                                  "corrupt and truncated streams")
+    ok6, n6 = p6a[2].numpy(), p6a[1].numpy()
+    ns = len(s256)
+    check(bool(ok6[:ns].all()) and not ok6[ns:ns + 3].any()
+          and int(n6[ns]) > WIDE,
+          "K6a verdicts: valid streams ok, bad ones refused, the bad literal "
+          f"run reports n_out {int(n6[ns])} > out_cap {WIDE}")
+    check(all(p6a[0][i].numpy().tobytes() == src256[i] for i in range(ns)),
+          "K6a rebuilds the 256 KiB blocks")
+    s4 = [native.compress(b, level=1) for b in big_blocks]
+    trunc4 = [s4[0][: len(s4[0]) // 3], bytearray(s4[1])]
+    trunc4[1][len(s4[1]) // 2] ^= 0xFF
+    p6b, k6a_plain_ms, e6a_2 = dec_wide_both(
+        s4 + [bytes(x) for x in trunc4], BIG,
+        "native 4 MiB blocks, truncated and flipped")
+    check(all(p6b[0][i].numpy().tobytes() == big_blocks[i] for i in (0, 1))
+          and not p6b[2].numpy()[2], "K6a decodes the native 4 MiB blocks")
+    k6a_err = max(e6a_1, e6a_2)
+
+    # ---- 17. the whole-block codec at full width: 64 rows of 4 MiB ------
+    from plz4_tpu_torch.frame import block_io, header, trailer
+
+    def synced(fn):
+        r = fn()
+        torch.cuda.synchronize()
+        return r
+
+    n_wide = len(main_data) // BIG
+    wd = torch.from_numpy(np.frombuffer(main_data, np.uint8).reshape(
+        n_wide, BIG).copy()).to(dev)
+    wl = torch.full((n_wide,), BIG, dtype=torch.int32, device=dev)
+    synced(lambda: encode.encode_batch(wd[:1], wl[:1]))  # warm-up
+    reset()
+    (wout, wtot, wok), t_wenc = host_ms(
+        lambda: synced(lambda: encode.encode_batch(wd, wl)))
+    check(bool(wok.all()), f"K6b compressed all {n_wide} rows of 4 MiB")
+    C_w = (int(wtot.max()) + 16 + 3) & ~3
+    comp = wout[:, :C_w] * (torch.arange(C_w, device=dev)[None]
+                            < wtot[:, None])
+    (dout, dn, dok), t_wdec = host_ms(
+        lambda: synced(lambda: decode.decode_batch(comp, wtot, BIG)))
+    wide_counts = {k: v for k, v in read().items() if v}
+    check(bool(dok.all()) and bool((dn == BIG).all())
+          and torch.equal(dout, wd),
+          f"{n_wide} x 4 MiB rows round trip through K6b and K6a intact")
+    check(wide_counts == {"encode_wide.launches": 1,
+                          "decode.wide_launches": 1},
+          f"exactly one K6b and one K6a launch ({wide_counts})")
+    gb = len(main_data) / 1e9
+    print(f"whole-block codec [{smi}]: {n_wide} x 4 MiB, encode "
+          f"{gb / (t_wenc / 1e3):.3f} GB/s ({t_wenc:.1f} ms), decode "
+          f"{gb / (t_wdec / 1e3):.3f} GB/s ({t_wdec:.1f} ms); ratio "
+          f"{len(main_data) / int(wtot.sum()):.4f}")
+    # frame the streams as a standard 4 MiB-BD frame, block checksums by K7
+    h_comp = xxh32.xxh32_batch(wout, wtot).cpu().tolist()
+    wt = wtot.cpu().tolist()
+    parts = [header.write_header(block_size_idx=plz4.BLOCK_IDX_4MB,
+                                 block_checksum=True)]
+    for i in range(n_wide):
+        parts.append(block_io.frame_block(
+            comp[i, :wt[i]].cpu().numpy().tobytes(), False, True,
+            checksum=h_comp[i]))
+    parts.append(trailer.write_trailer(native.xxh32(main_data)))
+    wide_frame = b"".join(parts)
+    check(plz4.decompress(wide_frame, backend="native") == main_data,
+          "the K6b streams framed as a 4 MiB frame decode with native")
+    del comp, dout, parts, wide_frame
+    # the level-8 request: mid mode at depth 2, as the Pallas wrapper runs it
+    reset()
+    (mout, mtot, mok), t_menc = host_ms(
+        lambda: synced(lambda: encode_mid.encode_batch_mid(wd, wl,
+                                                           depth4=True)))
+    mid_counts = {k: v for k, v in read().items() if v}
+    check(mid_counts == {"encode_wide.mid_launches": 1},
+          f"a level-8 request at 4 MiB: one K6b launch in mid mode "
+          f"({mid_counts})")
+    p_big = k6b[True][2]
+    mo, mt, mk = mout[:2].cpu(), mtot[:2].cpu(), mok[:2].cpu()
+    check(torch.equal(mt, p_big[1]) and torch.equal(mk, p_big[2])
+          and all(torch.equal(mo[i, :mt[i]], p_big[0][i, :mt[i]])
+                  for i in range(2)),
+          "its first two streams equal the depth-2 plain version's")
+    print(f"whole-block codec level 8 [{smi}]: encode "
+          f"{gb / (t_menc / 1e3):.3f} GB/s ({t_menc:.1f} ms), ratio "
+          f"{len(main_data) / int(mtot.sum()):.4f}")
+    del mout
+    k6b_ms = cuda_ms(lambda: encode.encode_batch(wd, wl), 1)
+    k6b_mid_ms = cuda_ms(lambda: encode_mid.encode_batch_mid(wd, wl, True), 1)
+    comp = wout[:, :C_w] * (torch.arange(C_w, device=dev)[None]
+                            < wtot[:, None])
+    k6a_ms = cuda_ms(lambda: decode.decode_batch(comp, wtot, BIG), 1)
+    k6b_bound = bound_ms(len(main_data) + 8 * n_wide + int(wtot.sum())
+                         + 5 * n_wide, OPS_PER_BYTE * len(main_data))
+    k6b_mid_bound = bound_ms(len(main_data) + 8 * n_wide + int(mtot.sum())
+                             + 5 * n_wide, OPS_PER_BYTE * len(main_data))
+    k6a_bound = bound_ms(int(wtot.sum()) + 4 * n_wide + len(main_data)
+                         + 5 * n_wide, OPS_PER_BYTE * len(main_data))
+    print(f"ms per {n_wide} x 4 MiB launch [{smi}]: K6b greedy "
+          f"{k6b_ms:.1f}, K6b mid {k6b_mid_ms:.1f}, K6a {k6a_ms:.1f}")
+    del wd, wl, wout, comp, mtot
+    torch.cuda.empty_cache()
+
+    # ---- 18. block checksums at full width --------------------------------
+    optsc = dict(backend="device", level=1,
+                 block_size_idx=plz4.BLOCK_IDX_64KB, block_checksum=True)
+    head = main_data[: 8 << 20]
+    fc_head = plz4.compress(head, **optsc)
+    check(plz4.decompress(fc_head, backend="device") == head,
+          "warm-up round trip with block checksums")
+    check(fc_head == plz4.compress(head, device="cpu", **optsc),
+          "block checksums: the first 8 MiB frame equals the device=cpu "
+          "frame")
+    real_xxh32 = native.xxh32
+    host_hashes = [0]
+
+    def counting(data, seed=0):
+        host_hashes[0] += 1
+        return real_xxh32(data, seed)
+
+    native.xxh32 = counting
+    try:
+        reset()
+        frame_c, t_encc = host_ms(lambda: plz4.compress(main_data, **optsc))
+        torch.cuda.synchronize()
+        enc_counts, enc_hashes = read(), host_hashes[0]
+        reset()
+        back_c, t_decc = host_ms(lambda: plz4.decompress(frame_c,
+                                                         backend="device"))
+        torch.cuda.synchronize()
+        dec_counts, dec_hashes = read(), host_hashes[0] - enc_hashes
+    finally:
+        native.xxh32 = real_xxh32
+    check(back_c == main_data, "256 MiB frame with block checksums: device "
+                               "round trip intact")
+    check(enc_hashes == 0 and dec_hashes == 0,
+          f"zero host native.xxh32 block hashes on write ({enc_hashes}) and "
+          f"read ({dec_hashes})")
+    k7_enc, k7_dec = enc_counts["xxh32.launches"], dec_counts["xxh32.launches"]
+    check(k7_enc == 2 * math.ceil(n_blocks / ROWS)
+          and enc_counts["encode.launches"] == math.ceil(n_blocks / ROWS),
+          f"K7 twice per Writer batch ({k7_enc}), K2a once "
+          f"({enc_counts['encode.launches']})")
+    check(k7_dec == math.ceil(n_blocks / read_batch) == dec_counts[
+        "decode.launches"], f"K7 once per Reader batch ({k7_dec})")
+    k7_launches = k7_enc + k7_dec
+    check(plz4.decompress(frame_c, backend="native") == main_data,
+          "the checksummed device frame decodes with backend=native")
+    native_c = plz4.compress(main_data, backend="native",
+                             block_size_idx=plz4.BLOCK_IDX_64KB,
+                             block_checksum=True)
+    check(plz4.decompress(native_c, backend="device") == main_data,
+          "a native block-checksummed frame decodes on the device")
+    bad = bytearray(frame_c)
+    bad[7 + 4 + 1000] ^= 0x20  # inside the first block's payload
+    try:
+        plz4.decompress(bytes(bad), backend="device")
+        raised = None
+    except plz4.errors.Lz4Error as e:
+        raised = e
+    check(raised is plz4.errors.ErrBlockHash,
+          f"a flipped byte in a block raises ErrBlockHash ({raised!r})")
+    print(f"block checksums [{smi}]: encode {gb / (t_encc / 1e3):.3f} GB/s, "
+          f"decode {gb / (t_decc / 1e3):.3f} GB/s through Writer/Reader; "
+          f"frame ratio {len(main_data) / len(frame_c):.4f}; K7 launches "
+          f"{k7_enc} + {k7_dec}")
+    del frame_c, back_c, native_c, bad
+    for name, o in (("4 MiB blocks", dict(block_checksum=True, level=1)),
+                    ("a dictionary", dict(optsc, dictionary=dict64))):
+        o = dict(o, backend="device")
+        d = o.get("dictionary")
+        f = plz4.compress(win_data, **o)
+        check(plz4.decompress(f, backend="device", dictionary=d) == win_data
+              and plz4.decompress(f, backend="native", dictionary=d)
+              == win_data, f"32 MiB frame with block checksums and {name} "
+                           "round trip")
+
     mid_bound = {d4: row_bound(mid[d4][3]) for d4 in mid}
     deep_bound = row_bound(deep[2][3])
     kernels = [
@@ -859,6 +1155,32 @@ def main() -> int:
              launches=k4_launches, max_abs_err=max(deep[2][2], deep[32][2]),
              ms=deep[2][0], plain_ms=deep[2][1], bound_ms=deep_bound[0],
              bound_by=deep_bound[1], library_ms=None),
+        # the plain ms of K6b and K6a are over their 8 x 256 KiB and 2 x
+        # 4 MiB held rows; ms and bound over the 64 x 4 MiB launch
+        dict(name="K6b packed-word encode, greedy (rows over 96 KiB)",
+             route="cuda", source="plz4_tpu_torch/csrc/lz4_encode_wide.cu",
+             replaces="plz4_tpu/ops/encode_pallas.py:38",
+             launches=wide_counts["encode_wide.launches"],
+             max_abs_err=k6b[False][1], ms=k6b_ms, plain_ms=k6b[False][0],
+             bound_ms=k6b_bound[0], bound_by=k6b_bound[1], library_ms=None),
+        dict(name="K6b packed-word encode, depth-2 chain (levels 3-12)",
+             route="cuda", source="plz4_tpu_torch/csrc/lz4_encode_wide.cu",
+             replaces="plz4_tpu/ops/encode_pallas.py:38",
+             launches=mid_counts["encode_wide.mid_launches"],
+             max_abs_err=k6b[True][1], ms=k6b_mid_ms, plain_ms=k6b[True][0],
+             bound_ms=k6b_mid_bound[0], bound_by=k6b_mid_bound[1],
+             library_ms=None),
+        dict(name="K6a packed-word block decode (blocks over 96 KiB)",
+             route="cuda", source="plz4_tpu_torch/csrc/lz4_decode_wide.cu",
+             replaces="plz4_tpu/ops/decode_pallas.py:130",
+             launches=wide_counts["decode.wide_launches"],
+             max_abs_err=k6a_err, ms=k6a_ms, plain_ms=k6a_plain_ms,
+             bound_ms=k6a_bound[0], bound_by=k6a_bound[1], library_ms=None),
+        dict(name="K7 xxh32 over a batch (not Pallas)", route="cuda",
+             source="plz4_tpu_torch/csrc/xxh32.cu",
+             replaces="plz4_tpu/ops/xxh32_jax.py:42", launches=k7_launches,
+             max_abs_err=k7_err, ms=k7_ms, plain_ms=k7_plain_ms,
+             bound_ms=k7_bound[0], bound_by=k7_bound[1], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

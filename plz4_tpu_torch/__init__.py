@@ -7,10 +7,10 @@ access, a raw block API) with the device block codec running as
 hand-written CUDA kernels on an NVIDIA Hopper GPU (csrc/, bound by
 ops/_build.py) and a native C++ host codec for the serial/sync paths.
 
-backend="device" covers levels 1-2 at every block size (blocks over 64 KiB
-as 64 KiB chunks and records), dictionaries and linked blocks, without
-block checksums; levels above 2 and block checksums raise
-NotImplementedError (see opts.Options.check_device).
+backend="device" covers levels 1-12 at every block size (blocks over 64 KiB
+as 64 KiB chunks and records), dictionaries, linked blocks and block
+checksums (hashed on the device). ops.encode.encode_block_host and
+ops.decode.decode_block_host code single blocks of up to 4 MiB.
 """
 
 def _tune_allocator() -> None:

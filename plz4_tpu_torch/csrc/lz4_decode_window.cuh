@@ -43,20 +43,6 @@
 
 #include "lz4_common.cuh"
 
-LZ4T_HD int lz4t_rdz(const uint8_t* c, int C, int p) {
-  return (unsigned)p < (unsigned)C ? c[p] : 0;
-}
-
-LZ4T_HD int lz4t_varint_z(const uint8_t* c, int C, int p, int* len) {
-  int t = *len, b;
-  do {
-    b = lz4t_rdz(c, C, p++);
-    t += b;
-  } while (b == 255);
-  *len = t;
-  return p;
-}
-
 // m match bytes to o[op..) from op - off: sources before the row's first
 // output byte come from the window, the rest from the output itself
 // (overlapping copies repeat the period, byte by byte).

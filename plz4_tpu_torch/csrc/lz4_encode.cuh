@@ -24,6 +24,15 @@
 // stream that later emits overwrite; the copies here are exact, which
 // gives the same bytes [0, total).
 //
+// kGuard = false is the emit of the packed-word Pallas kernel
+// encode_pallas.py:_encode_kernel (K6b, rows too wide for the byte-wide
+// kernel): no room guard before a sequence, every write clipped at OT - 1,
+// and the same overflow test after it. The two emits agree on ok: a
+// sequence that trips the room guard (op + lit + (lit >> 8) + (mlen >> 8)
+// + 32 > OT) still writes at least lit + (lit >> 8) + (mlen >> 8) + 1
+// bytes, so it ends at op > OT - 32 > n and ok is false either way; total
+// may then differ.
+//
 // The stored word of a slot. The Pallas kernel keeps it in a second table
 // (vtab[h] = u beside tab[h] = p + 1). Every stored p lies below the clip
 // (p <= mflimit, p <= nip - 2 or p < base) and the row never changes, so
@@ -118,10 +127,62 @@ LZ4T_HD int lz4t_emit_sequence(const uint8_t* c, uint8_t* o, int OT, int op,
   return q;
 }
 
+LZ4T_HD void lz4t_put(uint8_t* o, int OT, int p, int v) {
+  o[lz4t_min(p, OT - 1)] = (uint8_t)v;
+}
+
+LZ4T_HD int lz4t_emit_len_ext_clipped(uint8_t* o, int OT, int p, int v) {
+  for (; v >= 255; v -= 255) lz4t_put(o, OT, p++, 255);
+  lz4t_put(o, OT, p++, v);
+  return p;
+}
+
+// K6b's emit (see the file comment): the sequence of lz4t_emit_sequence
+// without the room guard, every write clipped at OT - 1. The literals move
+// 16 bytes at a time, loads before stores, since the wide kernel's row and
+// output live in device memory.
+LZ4T_HD int lz4t_emit_sequence_clipped(const uint8_t* c, uint8_t* o, int OT,
+                                       int op, int anchor, int ip, int mpos,
+                                       int mlen) {
+  const int lit = ip - anchor;
+  int q = op + 1;
+  if (lit >= 15) q = lz4t_emit_len_ext_clipped(o, OT, q, lit - 15);
+  for (int i = 0; i < lit; i += 16) {
+    uint8_t t[16];
+#pragma unroll
+    for (int j = 0; j < 16; j++) t[j] = i + j < lit ? c[anchor + i + j] : 0;
+#pragma unroll
+    for (int j = 0; j < 16; j++)
+      if (i + j < lit) lz4t_put(o, OT, q + i + j, t[j]);
+  }
+  q += lit;
+  int tok = lz4t_min(lit, 15) << 4;
+  if (mlen > 0) {
+    const int off = ip - mpos;
+    lz4t_put(o, OT, q, off & 255);
+    lz4t_put(o, OT, q + 1, off >> 8);
+    q += 2;
+    const int mv = mlen - 4;
+    if (mv >= 15) q = lz4t_emit_len_ext_clipped(o, OT, q, mv - 15);
+    tok |= lz4t_min(mv, 15);
+  }
+  lz4t_put(o, OT, op, tok);
+  return q;
+}
+
+template <bool kGuard>
+LZ4T_HD int lz4t_emit(const uint8_t* c, uint8_t* o, int OT, int op,
+                      int anchor, int ip, int mpos, int mlen) {
+  if constexpr (kGuard)
+    return lz4t_emit_sequence(c, o, OT, op, anchor, ip, mpos, mlen);
+  else
+    return lz4t_emit_sequence_clipped(c, o, OT, op, anchor, ip, mpos, mlen);
+}
+
 // c: the row, DT = base + N + 8 bytes (n block bytes at base, zero after
 // the block's N); o: OT = CAP output bytes; tab (and vtab when kVtab):
 // 2^14 entries, zeroed and then preloaded with the window by the caller.
-template <bool kVtab>
+template <bool kVtab, bool kGuard = true>
 LZ4T_HD void lz4t_encode_row(const uint8_t* c, int DT, int base, int first,
                              int n, uint8_t* o, int OT, uint32_t* tab,
                              uint32_t* vtab, int* total_out, int* ok_out) {
@@ -168,7 +229,8 @@ LZ4T_HD void lz4t_encode_row(const uint8_t* c, int DT, int base, int first,
     }
     int mlen = 4 + back;
     while (mip + mlen < matchlimit && c[mip + mlen] == c[mpos + mlen]) mlen++;
-    const int op2 = lz4t_emit_sequence(c, o, OT, op, anchor, mip, mpos, mlen);
+    const int op2 =
+        lz4t_emit<kGuard>(c, o, OT, op, anchor, mip, mpos, mlen);
     const int nip = mip + mlen;
     const uint32_t u2 = lz4t_rd32(c, lz4t_min(nip - 2, clip));
     const uint32_t h2 = lz4t_hash(u2);
@@ -183,7 +245,7 @@ LZ4T_HD void lz4t_encode_row(const uint8_t* c, int DT, int base, int first,
   if (overflow || op + rest + rest / 255 + 16 > OT)
     op = OT;
   else
-    op = lz4t_emit_sequence(c, o, OT, op, anchor, end, 0, 0);
+    op = lz4t_emit<kGuard>(c, o, OT, op, anchor, end, 0, 0);
   *total_out = op;
   *ok_out = (op < n) && !overflow;
 }

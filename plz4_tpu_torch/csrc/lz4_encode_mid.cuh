@@ -21,7 +21,9 @@
 //   * backward extension while mip > anchor, mpos > first and the bytes
 //     agree, forward extension from 4 + back up to matchlimit = end - 5;
 //   * after each match only position nip - 2 is inserted (with the shift);
-//   * emit, room guard, overflow and ok exactly as lz4t_encode_row.
+//   * emit, room guard, overflow and ok exactly as lz4t_encode_row; with
+//     kGuard = false the emit of the packed-word kernel _encode_kernel in mid
+//     mode (K6b: depth 2 only, no room guard, writes clipped at OT - 1).
 #pragma once
 
 #include "lz4_encode.cuh"
@@ -79,7 +81,7 @@ LZ4T_HD int lz4t_mid_score(const uint8_t* c, int clip, int first, int sip,
 // c: the row, DT = base + N + 8 bytes (n block bytes at base, zero after
 // the block's N); o: OT = CAP output bytes; t: kDepth 2^13-entry tables,
 // zeroed and then preloaded with the window by the caller.
-template <int kDepth>
+template <int kDepth, bool kGuard = true>
 LZ4T_HD void lz4t_encode_mid_row(const uint8_t* c, int DT, int base,
                                  int first, int n, uint8_t* o, int OT,
                                  const lz4t_mid_tabs& t, int* total_out,
@@ -141,7 +143,8 @@ LZ4T_HD void lz4t_encode_mid_row(const uint8_t* c, int DT, int base,
     }
     int mlen = 4 + back;
     while (mip + mlen < matchlimit && c[mip + mlen] == c[mpos + mlen]) mlen++;
-    const int op2 = lz4t_emit_sequence(c, o, OT, op, anchor, mip, mpos, mlen);
+    const int op2 =
+        lz4t_emit<kGuard>(c, o, OT, op, anchor, mip, mpos, mlen);
     const int nip = mip + mlen;
     lz4t_mid_insert<kDepth>(
         t, lz4t_hash_mid(lz4t_rd32(c, lz4t_min(nip - 2, clip))),
@@ -155,7 +158,7 @@ LZ4T_HD void lz4t_encode_mid_row(const uint8_t* c, int DT, int base,
   if (overflow || op + rest + rest / 255 + 16 > OT)
     op = OT;
   else
-    op = lz4t_emit_sequence(c, o, OT, op, anchor, end, 0, 0);
+    op = lz4t_emit<kGuard>(c, o, OT, op, anchor, end, 0, 0);
   *total_out = op;
   *ok_out = (op < n) && !overflow;
 }

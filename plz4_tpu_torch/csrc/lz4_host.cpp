@@ -1,6 +1,6 @@
 // Host build of the CUDA kernels' row bodies (lz4_encode.cuh,
 // lz4_encode_mid.cuh, lz4_encode_deep.cuh, lz4_decode.cuh,
-// lz4_decode_window.cuh), compiled with g++ so that the CPU
+// lz4_decode_window.cuh, lz4_decode_wide.cuh, xxh32.cuh), compiled with g++ so that the CPU
 // tests can run the kernels' own logic on machines without a GPU. Same
 // layouts and results as the kernels' launchers.
 #include <string.h>
@@ -8,10 +8,12 @@
 #include <vector>
 
 #include "lz4_decode.cuh"
+#include "lz4_decode_wide.cuh"
 #include "lz4_decode_window.cuh"
 #include "lz4_encode.cuh"
 #include "lz4_encode_deep.cuh"
 #include "lz4_encode_mid.cuh"
+#include "xxh32.cuh"
 
 // K2a: lz4_encode.cu
 extern "C" void lz4t_host_encode(const uint8_t* data, const int32_t* lens,
@@ -173,5 +175,68 @@ extern "C" void lz4t_host_decode_records(const uint8_t* rows,
       oks[rec] = okv != 0;
       win = o;
     }
+  }
+}
+
+// K6b: lz4_encode_wide.cu. Rows are [window D | block | 8 zero bytes]; the
+// window preload inserts every usable position in order.
+extern "C" void lz4t_host_encode_wide(const uint8_t* rows, const int32_t* lens,
+                                      const int32_t* wlens, uint8_t* out,
+                                      int32_t* totals, uint8_t* ok, int R,
+                                      int DT, int D, int CAP, int mid) {
+  std::vector<uint32_t> tabs(2 << LZ4T_HASH_LOG);
+  for (int r = 0; r < R; r++) {
+    memset(tabs.data(), 0, tabs.size() * 4);
+    const uint8_t* c = rows + (size_t)r * DT;
+    const int first = lz4t_window_first(wlens, r, D);
+    int total, okv;
+    if (mid) {
+      const int T = 1 << LZ4T_MID_HASH_LOG;
+      const lz4t_mid_tabs t = {tabs.data(), tabs.data() + T, nullptr,
+                               nullptr};
+      lz4t_mid_preload<2>(c, D, first, 1, t);
+      lz4t_encode_mid_row<2, false>(c, DT, D, first, lens[r],
+                                    out + (size_t)r * CAP, CAP, t, &total,
+                                    &okv);
+    } else {
+      uint32_t* tab = tabs.data();
+      uint32_t* vtab = tab + (1 << LZ4T_HASH_LOG);
+      for (int p = first; p < D; p++) {
+        const uint32_t u = lz4t_rd32(c, p);
+        tab[lz4t_hash(u)] = (uint32_t)(p + 1);
+        vtab[lz4t_hash(u)] = u;
+      }
+      lz4t_encode_row<true, false>(c, DT, D, first, lens[r],
+                                   out + (size_t)r * CAP, CAP, tab, vtab,
+                                   &total, &okv);
+    }
+    totals[r] = total;
+    ok[r] = okv != 0;
+  }
+}
+
+// K6a: lz4_decode_wide.cu
+extern "C" void lz4t_host_decode_wide(const uint8_t* comp,
+                                      const int32_t* clens, uint8_t* out,
+                                      int32_t* n_out, uint8_t* ok, int B,
+                                      int C, int out_cap) {
+  for (int b = 0; b < B; b++) {
+    int n, okv;
+    lz4t_decode_wide_row(comp + (size_t)b * C, C, clens[b],
+                         out + (size_t)b * out_cap, out_cap, &n, &okv);
+    n_out[b] = n;
+    ok[b] = okv != 0;
+  }
+}
+
+// K7: xxh32.cu
+extern "C" void lz4t_host_xxh32(const uint8_t* data, const int32_t* lens,
+                                int64_t* out, int B, int W, int seed) {
+  for (int r = 0; r < B; r++) {
+    const uint8_t* p = data + (size_t)r * W;
+    uint32_t acc[4];
+    for (int k = 0; k < 4; k++)
+      acc[k] = lz4t_xxh32_lane(p, lens[r], (uint32_t)seed, k);
+    out[r] = lz4t_xxh32_finish(acc, p, lens[r], (uint32_t)seed);
   }
 }

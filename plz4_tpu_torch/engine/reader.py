@@ -66,7 +66,6 @@ class FrameReader:
         if self._use_device:
             from ..parallel import batch as dev_batch
 
-            self._o.check_device(write=False)
             self._device = dev_batch.resolve_device(self._o.device)
         # per-frame state
         self._hdr: hdr.FrameHeader | None = None
@@ -251,8 +250,8 @@ class FrameReader:
             self._frame_parallel = max(1, min(self._parallel, blocks))
         self._budget = calc_pending(
             self._o.pending_size, self._frame_parallel, h.block_size_idx)
-        # the device path defers block checksums to the batch layer, which
-        # refuses them until the device hash is ported (ROADMAP item 7)
+        # the device path verifies block checksums in one K7 launch per
+        # batch (parallel/batch.py) instead of per-block host hashing
         defer = (self._use_device and h.block_checksum
                  and h.block_independent and self._frame_parallel != 0)
         self._blk_rdr = block_io.FrameBlockReader(

@@ -170,7 +170,6 @@ class FrameWriter:
         if self._use_device:
             from ..parallel import batch as dev_batch
 
-            self._o.check_device(write=True)
             self._device = dev_batch.resolve_device(self._o.device)
         self._device_stage: list = []  # (src, window) tuples
         self._device_pending: deque = deque()  # in-flight device batches

@@ -33,6 +33,9 @@ KERNELS = {
     "lz4_encode_deep": {"lz4t_launch": (8, 8)},       # K4
     "lz4_decode_window": {"lz4t_launch_dict": (6, 5),  # K3
                           "lz4t_launch_records": (6, 4)},  # K5 (and K6c)
+    "lz4_encode_wide": {"lz4t_launch": (6, 5)},       # K6b
+    "lz4_decode_wide": {"lz4t_launch": (5, 3)},       # K6a
+    "xxh32": {"lz4t_launch": (3, 3)},                 # K7
 }
 # host build of the row bodies (csrc/lz4_host.cpp): entry point -> (pointers,
 # ints); the CPU tests call these
@@ -44,6 +47,9 @@ HOST_FNS = {
     "lz4t_host_decode": (5, 3),
     "lz4t_host_decode_dict": (6, 5),
     "lz4t_host_decode_records": (6, 4),
+    "lz4t_host_encode_wide": (6, 5),
+    "lz4t_host_decode_wide": (5, 3),
+    "lz4t_host_xxh32": (3, 3),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

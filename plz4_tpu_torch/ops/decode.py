@@ -13,43 +13,66 @@ are wrong (csrc/lz4_decode_window.cuh): a record that a match fills
 exactly is valid here, and K5's widened short-offset copies near a record
 start are exact here. Rows carry zero padding past clen (the batch layer
 uses C = block_size + 16 for whole blocks).
+
+decode_batch takes whole blocks up to the 4 MiB LZ4 block: out_cap up to
+96 KiB on K1, as the Pallas wrapper keeps them on its byte-wide kernel
+(bw_fits), and wider on K6a (csrc/lz4_decode_wide.cu), the counterpart of
+the packed-word kernel decode_pallas._decode_kernel. decode_block_host
+decodes one block of any size.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .. import errors as zerr
 from . import _build
 
 ROW_SLACK = 16  # compressed row width C = block_size + ROW_SLACK
-MAX_OUT = 65536  # 64 KiB blocks; wider blocks are 64 KiB records (large.py)
+MAX_OUT = 65536  # the batch layer's blocks; wider ones are 64 KiB records
+BW_MAX_OUT = 96 * 1024  # the widest output the Pallas byte-wide kernel takes
+MAX_WIDE_OUT = 4 << 20  # the widest output K6a takes: the LZ4 maximum block
 MAX_WINDOW = 65536  # the LZ4 match window
 MAX_SMEM = 232448  # shared memory a thread block can use on the H100
 
 launches = 0  # K1 launches by decode_batch
+wide_launches = 0  # K6a launches by decode_batch
 dict_launches = 0  # K3 launches by decode_batch_dict
 record_launches = 0  # K5 launches by decode_records_batch
 
 
+def bw_fits(out_cap: int) -> bool:
+    """Whether the Pallas wrapper decodes a block of out_cap bytes on its
+    byte-wide kernel (decode_pallas._BW_MAX_OUT): K1 here, else K6a."""
+    return out_cap <= BW_MAX_OUT
+
+
 def decode_batch(comp: torch.Tensor, clens: torch.Tensor, out_cap: int):
     """comp (B, C) uint8 with C % 4 == 0, clens (B,) int32, out_cap % 4 == 0
-    and <= 64 KiB -> (out (B, out_cap) uint8, n_out (B,) int32, ok (B,)
-    bool); bytes past n_out are undefined. Reads clip at C - 1, as the
-    Pallas kernel's do. On CUDA tensors it launches K1 on the current
-    stream without synchronising; on CPU tensors it runs the plain
-    version."""
-    global launches
+    and <= 4 MiB -> (out (B, out_cap) uint8, n_out (B,) int32, ok (B,)
+    bool); bytes past n_out are undefined. Up to 96 KiB (bw_fits) reads
+    clip at C - 1 as the Pallas byte-wide kernel's do, and K1 needs C +
+    out_cap bytes of shared memory; wider blocks read zeros past C and, on
+    a corrupt stream, may report n_out > out_cap (decode_batch_wide). On
+    CUDA tensors it launches K1 or K6a on the current stream without
+    synchronising; on CPU tensors it runs the plain version."""
+    global launches, wide_launches
     if comp.dim() != 2 or comp.dtype != torch.uint8:
         raise ValueError("comp must be a (B, C) uint8 tensor")
     B, C = comp.shape
-    if C % 4 or out_cap % 4 or not 0 < out_cap <= MAX_OUT or C > MAX_OUT + 64:
+    wide = not bw_fits(out_cap)
+    if (C % 4 or out_cap % 4 or not 0 < out_cap <= MAX_WIDE_OUT
+            or C > (MAX_WIDE_OUT * 3 // 2 if wide else MAX_SMEM - out_cap)):
         raise ValueError(f"row widths C={C}, out_cap={out_cap}: need "
-                         f"multiples of 4, out_cap <= {MAX_OUT}")
+                         f"multiples of 4, out_cap <= {MAX_WIDE_OUT}, C + "
+                         f"out_cap <= {MAX_SMEM} up to {BW_MAX_OUT}")
     if (clens.shape != (B,) or clens.dtype != torch.int32
             or clens.device != comp.device):
         raise ValueError("clens must be a (B,) int32 tensor on comp's device")
     if comp.device.type == "cpu":
-        return decode_batch_plain(comp, clens, out_cap)
+        return (decode_batch_wide_plain if wide else decode_batch_plain)(
+            comp, clens, out_cap)
     if comp.device.type != "cuda":
         raise ValueError(f"unsupported device {comp.device}")
     comp, clens = comp.contiguous(), clens.contiguous()
@@ -59,12 +82,35 @@ def decode_batch(comp: torch.Tensor, clens: torch.Tensor, out_cap: int):
     if B:
         with torch.cuda.device(comp.device):
             stream = torch.cuda.current_stream(comp.device).cuda_stream
-            _build.launch("lz4_decode",
+            _build.launch("lz4_decode_wide" if wide else "lz4_decode",
                           (comp.data_ptr(), clens.data_ptr(), out.data_ptr(),
                            n_out.data_ptr(), ok.data_ptr()),
                           (B, C, out_cap), stream)
-        launches += 1
+        if wide:
+            wide_launches += 1
+        else:
+            launches += 1
     return out, n_out, ok
+
+
+def decode_block_host(comp: bytes, out_cap: int, device=None) -> bytes:
+    """Decode one LZ4 block stream of at most out_cap (<= 4 MiB) bytes on
+    the device, CUDA unless device="cpu"; raises ErrDecompress on a corrupt
+    stream. The counterpart of decode_pallas.decode_block_host (the same
+    row: the stream and 8 zero bytes, rounded up to 4)."""
+    from ..parallel.batch import resolve_device
+
+    dev = resolve_device(device)
+    C = max(16, (len(comp) + 8 + 3) & ~3)
+    out_cap = (out_cap + 3) & ~3
+    buf = np.zeros((1, C), dtype=np.uint8)
+    buf[0, :len(comp)] = np.frombuffer(comp, dtype=np.uint8)
+    out, n, ok = decode_batch(
+        torch.from_numpy(buf).to(dev),
+        torch.tensor([len(comp)], dtype=torch.int32, device=dev), out_cap)
+    if not bool(ok[0]):
+        raise zerr.ErrDecompress
+    return out[0, :int(n[0])].cpu().numpy().tobytes()
 
 
 def _launch(fn: str, ptrs, ints, device) -> None:
@@ -220,7 +266,7 @@ def decode_row_plain(c: bytes, clen: int, out_cap: int):
 
 def decode_batch_plain(comp: torch.Tensor, clens: torch.Tensor,
                        out_cap: int):
-    """Plain version of decode_batch (same signature and results) on CPU
+    """Plain version of K1 (decode_batch's results up to 96 KiB) on CPU
     tensors; bytes past n_out are zero."""
     B = comp.shape[0]
     c = comp.numpy()
@@ -232,6 +278,69 @@ def decode_batch_plain(comp: torch.Tensor, clens: torch.Tensor,
         s, good = decode_row_plain(c[i].tobytes(), clen, out_cap)
         o[i, :len(s)] = memoryview(s)
         n_out[i] = len(s)
+        ok[i] = good
+    return out, n_out, ok
+
+
+# ---------------------------------------------------------------------------
+# plain version of K6a: the packed-word kernel's loop (csrc/lz4_decode_wide.cuh)
+# ---------------------------------------------------------------------------
+
+def decode_row_wide_plain(c: bytes, clen: int, out_cap: int):
+    """One compressed row c (its full width C; reads past it give 0):
+    (bytes written, n_out, ok). n_out exceeds the bytes written when a bad
+    literal run ends the row: K6a advances past it uncopied."""
+    o = bytearray()
+    ip = op = 0
+    ok = clen > 0
+    done = clen <= 0
+    while not done:
+        bad = ip >= clen
+        token = _rdz(c, ip)
+        ip += 1
+        lit = token >> 4
+        if lit == 15:
+            lit, ip = _varint_z(c, ip, lit)
+        bad = bad or ip + lit > clen or op + lit > out_cap
+        if not bad:
+            o += _slice_z(c, ip, lit)
+        ip += lit
+        op += lit
+        fin = ip >= clen or bad
+        if not fin:
+            off = _rdz(c, ip) | (_rdz(c, ip + 1) << 8)
+            ip += 2
+            bad = ip > clen or off == 0
+            ml = token & 15
+            if ml == 15:
+                ml, ip = _varint_z(c, ip, ml)
+            ml += 4
+            bad = bad or op + ml > out_cap or off > op
+            if not bad:
+                if off >= ml:
+                    o += o[op - off:op - off + ml]
+                else:
+                    o += (o[op - off:] * (ml // off + 1))[:ml]
+                op += ml
+        ok = ok and not bad
+        done = fin or bad
+    return bytes(o), op, ok and ip == clen
+
+
+def decode_batch_wide_plain(comp: torch.Tensor, clens: torch.Tensor,
+                            out_cap: int):
+    """Plain version of K6a (decode_batch's results over 96 KiB) on CPU
+    tensors; bytes past the written stream are zero."""
+    B = comp.shape[0]
+    c = comp.numpy()
+    out = torch.zeros((B, out_cap), dtype=torch.uint8)
+    n_out = torch.zeros((B,), dtype=torch.int32)
+    ok = torch.zeros((B,), dtype=torch.bool)
+    o = out.numpy()
+    for i, clen in enumerate(clens.tolist()):
+        s, n, good = decode_row_wide_plain(c[i].tobytes(), clen, out_cap)
+        o[i, :len(s)] = memoryview(s)
+        n_out[i] = n
         ok[i] = good
     return out, n_out, ok
 

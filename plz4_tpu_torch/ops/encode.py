@@ -9,6 +9,12 @@ JAX package's Pallas kernel (encode_pallas.encode_batch_pallas and
 encode_batch_pallas_dict): the same ok and total per row, and the same
 stream bytes [0, total) where ok holds. An incompressible row comes back
 with ok False, and the frame layer stores it raw.
+
+Rows go up to the 4 MiB LZ4 block. Those that the Pallas wrappers' byte-wide
+budget refuses (bw_fits: over about 96 KiB plain, 67 KiB after a 64 KiB
+window) go to the packed-word kernel K6b (encode_wide.py), as the Pallas
+wrappers send them to _encode_kernel; where a row goes decides its bytes.
+encode_block_host encodes one block of any size at a device level.
 """
 
 from __future__ import annotations
@@ -25,8 +31,12 @@ HASH_LOG = 14
 HASH_MUL = 2654435761
 MAX_DISTANCE = 65535
 SKIP_STRENGTH = 6
-MAX_ROW = 65536  # 64 KiB blocks; wider blocks are 64 KiB chunks (large.py)
+MAX_ROW = 65536  # the batch layer's rows; wider blocks are 64 KiB chunks
+MAX_BLOCK_ROW = 4 << 20  # the widest row the encode kernels take
 MAX_WINDOW = 65536  # the LZ4 match window
+# the Pallas byte-wide kernels' element budget (input + output + tables)
+BW_MAX_ELEMS = 230 * 1024
+MID_HASH_LOG = 13  # the chain tables' hash log
 
 launches = 0  # K2a launches by encode_batch
 window_launches = 0  # K2b launches by encode_batch_window
@@ -38,14 +48,25 @@ def out_width(N: int) -> int:
     return (N + N // 255 + 64 + 3) & ~3
 
 
+def bw_fits(n_in: int, cap: int, mid: bool, depth4: bool = False) -> bool:
+    """Whether the Pallas wrappers run a row of n_in input bytes ([window |
+    block | 8]) and cap output bytes on the byte-wide kernel
+    (encode_pallas._bw_fits): K2a-K2d here. False: the packed-word kernel
+    K6b, which has no depth-4 tables."""
+    tables = (4 if mid and depth4 else 2) << (MID_HASH_LOG if mid
+                                              else HASH_LOG)
+    return n_in + cap + tables <= BW_MAX_ELEMS
+
+
 def check_rows(data: torch.Tensor, lens: torch.Tensor) -> tuple[int, int]:
     """(R, N) of an encode launch's rows; raises ValueError on rows the
     encode kernels do not take."""
     if data.dim() != 2 or data.dtype != torch.uint8:
         raise ValueError("data must be a (R, N) uint8 tensor")
     R, N = data.shape
-    if N % 4 or N > MAX_ROW:
-        raise ValueError(f"row width {N}: needs N % 4 == 0 and N <= {MAX_ROW}")
+    if N % 4 or N > MAX_BLOCK_ROW:
+        raise ValueError(f"row width {N}: needs N % 4 == 0 and N <= "
+                         f"{MAX_BLOCK_ROW}")
     if (lens.shape != (R,) or lens.dtype != torch.int32
             or lens.device != data.device):
         raise ValueError("lens must be a (R,) int32 tensor on data's device")
@@ -85,12 +106,16 @@ def empty_outputs(R: int, N: int, device: torch.device):
 
 
 def encode_batch(data: torch.Tensor, lens: torch.Tensor):
-    """data (B, N) uint8 zero-padded rows with N % 4 == 0 and N <= 64 KiB,
+    """data (B, N) uint8 zero-padded rows with N % 4 == 0 and N <= 4 MiB,
     lens (B,) int32 -> (out (B, CAP) uint8, totals (B,) int32, ok (B,)
-    bool). On CUDA tensors it launches K2a on the current stream without
-    synchronising; on CPU tensors it runs the plain version."""
+    bool). On CUDA tensors it launches K2a (K6b where bw_fits refuses the
+    row) on the current stream without synchronising; on CPU tensors it
+    runs the plain version."""
     global launches
     B, N = check_rows(data, lens)
+    if not bw_fits(N + 8, out_width(N), mid=False):
+        from .encode_wide import encode_batch_wide
+        return encode_batch_wide(data, lens)
     if data.device.type == "cpu":
         return encode_batch_plain(data, lens)
     data, lens = data.contiguous(), lens.contiguous()
@@ -119,11 +144,16 @@ def encode_batch_window(data: torch.Tensor, lens: torch.Tensor,
     before it as its window (read in place; needs D == N), the first row of
     a group takes windows[r // chunks]. chunks=1 gives each row its own
     window. Returns (out (R, CAP) uint8, totals (R,) int32, ok (R,) bool).
-    On CUDA tensors it launches K2b on the current stream without
+    On CUDA tensors it launches K2b (K6b, which preloads every window
+    position, where bw_fits refuses the row) on the current stream without
     synchronising; on CPU tensors it runs the plain version."""
     global window_launches
     R, N = check_rows(data, lens)
     D = check_windows(data, windows, wlens, chunks, wstride)
+    if not bw_fits(D + N + 8, out_width(N), mid=False):
+        # chunk rows (D == N <= 64 KiB) always fit
+        from .encode_wide import encode_batch_wide
+        return encode_batch_wide(data, lens, windows, wlens)
     if data.device.type == "cpu":
         return encode_batch_window_plain(data, lens, windows, wlens, wstride,
                                          chunks)
@@ -161,11 +191,13 @@ def _emit_len_ext(o: bytearray, v: int) -> None:
 
 
 def _emit(c: bytes, o: bytearray, OT: int, anchor: int, ip: int,
-          mpos: int, mlen: int) -> bool:
+          mpos: int, mlen: int, guard: bool = True) -> bool:
     """Append literals [anchor, ip) and the match (mpos, mlen; 0 = final
-    literals) to o; False when the room guard refuses the sequence."""
+    literals) to o; False when the room guard refuses the sequence.
+    guard=False: K6b's emit, which has no room guard (its writes past OT
+    are clipped, and only rows that end not ok reach there)."""
     lit = ip - anchor
-    if len(o) + lit + (lit >> 8) + (mlen >> 8) + 32 > OT:
+    if guard and len(o) + lit + (lit >> 8) + (mlen >> 8) + 32 > OT:
         return False
     tok = len(o)
     o.append(0)
@@ -195,13 +227,14 @@ def _common(c: bytes, a: int, b: int, limit: int) -> int:
 
 
 def encode_row_plain(row: bytes, n: int, N: int, window: bytes = b"",
-                     wlen: int = 0, wstride: int = 1
+                     wlen: int = 0, wstride: int = 1, guard: bool = True
                      ) -> tuple[bytes, int, bool]:
     """One row of width N (n data bytes) after a right-aligned window of
     len(window) bytes, the last wlen of them usable: (stream, total, ok).
     The stream is meaningful where ok holds. The window preload keeps the
     largest of the positions that share a slot, which is what inserting
-    them in order leaves (csrc/lz4_encode.cuh)."""
+    them in order leaves (csrc/lz4_encode.cuh). guard=False is K6b's emit
+    (_emit)."""
     OT = out_width(N)
     base = len(window)
     first = base - min(max(wlen, 0), base)
@@ -241,22 +274,22 @@ def encode_row_plain(row: bytes, n: int, N: int, window: bytes = b"",
             mpos -= 1
         mlen = sip - mip + 4
         mlen += _common(c, mip + mlen, mpos + mlen, matchlimit)
-        roomy = _emit(c, o, OT, anchor, mip, mpos, mlen)
+        roomy = _emit(c, o, OT, anchor, mip, mpos, mlen, guard)
         nip = mip + mlen
         tab[hashes[min(nip - 2, clip)]] = nip - 1
         ip = anchor = nip
         overflow = not roomy or len(o) > OT - 16
-    return _finish(c, o, OT, anchor, end, n, overflow)
+    return _finish(c, o, OT, anchor, end, n, overflow, guard)
 
 
 def _finish(c: bytes, o: bytearray, OT: int, anchor: int, end: int, n: int,
-            overflow: bool) -> tuple[bytes, int, bool]:
+            overflow: bool, guard: bool = True) -> tuple[bytes, int, bool]:
     """Append the final literals [anchor, end) after a parse: (stream,
     total, ok). An overflow, or no room for the literals, gives total OT and
     ok False, as the kernels do."""
     rest = end - anchor
     if overflow or len(o) + rest + rest // 255 + 16 > OT \
-            or not _emit(c, o, OT, anchor, end, 0, 0):
+            or not _emit(c, o, OT, anchor, end, 0, 0, guard):
         return b"", OT, False
     return bytes(o), len(o), len(o) < n
 
@@ -288,16 +321,37 @@ def plain_batch(data: torch.Tensor, lens: torch.Tensor, row_fn,
 
 
 def encode_batch_plain(data: torch.Tensor, lens: torch.Tensor):
-    """Plain version of encode_batch (same signature and results) on CPU
-    tensors."""
+    """Plain version of K2a (encode_batch's results on rows that bw_fits
+    takes) on CPU tensors."""
     return plain_batch(data, lens, encode_row_plain)
 
 
 def encode_batch_window_plain(data: torch.Tensor, lens: torch.Tensor,
                               windows: torch.Tensor, wlens: torch.Tensor,
                               wstride: int = 1, chunks: int = 1):
-    """Plain version of encode_batch_window (same signature and results) on
-    CPU tensors."""
+    """Plain version of K2b (encode_batch_window's results on rows that
+    bw_fits takes) on CPU tensors."""
     return plain_batch(data, lens,
                        functools.partial(encode_row_plain, wstride=wstride),
                        windows, wlens, chunks)
+
+
+def encode_block_host(data: bytes, level: int = 1, device=None):
+    """Encode one block of up to 4 MiB at device level `level` (the batch
+    layer's kernel ladder) on the device, CUDA unless device="cpu": its LZ4
+    block stream, or None when the block is incompressible (store it raw).
+    The counterpart of encode_pallas.encode_block_host."""
+    from ..parallel.batch import dispatch_encode, resolve_device
+
+    if not data:
+        return b"\x00"
+    dev = resolve_device(device)
+    N = max(16, (len(data) + 3) & ~3)
+    buf = np.zeros((1, N), dtype=np.uint8)
+    buf[0, :len(data)] = np.frombuffer(data, dtype=np.uint8)
+    out, total, ok = dispatch_encode(
+        torch.from_numpy(buf).to(dev),
+        torch.tensor([len(data)], dtype=torch.int32, device=dev), level)
+    if not bool(ok[0]):
+        return None
+    return out[0, :int(total[0])].cpu().numpy().tobytes()

@@ -13,8 +13,9 @@ The routing of those Pallas wrappers shapes the output, so it is kept as
 it is (deep_route): a row takes a 2^15-slot head table when its i32 chain
 fits the TPU kernel's element budget, else, after a window, a 2^14-slot
 head with the window cut to its last 32 KiB (the u16-delta-chain variant),
-else the depth-4 chain (K2d). For rows of at most 64 KiB after windows of
-at most 64 KiB the last case never happens; it is routed all the same.
+else the depth-4 chain (encode_mid, which takes K6b at depth 2 for rows
+the byte-wide budget refuses). Rows of at most 64 KiB after windows of at
+most 64 KiB never take the last case; whole blocks over about 66 KiB do.
 """
 
 from __future__ import annotations
@@ -25,15 +26,14 @@ import torch
 
 from . import _build
 from . import encode_mid
-from .encode import (MAX_DISTANCE, _common, _emit, _finish, _words,
-                     check_rows, check_windows, empty_outputs, out_width,
-                     plain_batch)
+from .encode import (BW_MAX_ELEMS, MAX_DISTANCE, _common, _emit, _finish,
+                     _words, check_rows, check_windows, empty_outputs,
+                     out_width, plain_batch)
 
 # parse and routing constants (own copies; tests pin them to the Pallas
 # module's)
 DEEP_HASH_LOG = 15  # i32-chain rows
 DEEP_HASH_LOG_U16 = 14  # u16-delta-chain rows (windows over the budget)
-BW_MAX_ELEMS = 230 * 1024  # the Pallas kernels' SMEM element budget
 WINDOW_CUT = 32768  # the u16-chain variant keeps the last 32 KiB of window
 LAZY_CAP = 64  # lazy matching stops at a match this long
 MIN_MATCH = 4
@@ -88,7 +88,7 @@ def _launch(data, lens, windows, wlens, D: int, chunks: int, tries: int,
 
 def encode_batch_deep(data: torch.Tensor, lens: torch.Tensor,
                       tries: int = 16):
-    """data (B, N) uint8 zero-padded rows with N % 4 == 0 and N <= 64 KiB,
+    """data (B, N) uint8 zero-padded rows with N % 4 == 0 and N <= 4 MiB,
     lens (B,) int32 -> (out (B, CAP) uint8, totals (B,) int32, ok (B,)
     bool), walking at most `tries` chain links per search. On CUDA tensors
     it launches K4 on the current stream without synchronising; on CPU

@@ -7,7 +7,10 @@ CUDA kernel csrc/lz4_encode_mid.cu on CUDA tensors and the plain version on
 CPU tensors. Both are byte-exact with the JAX package's Pallas kernel in
 mid mode (encode_pallas.encode_batch_pallas_mid and
 encode_batch_pallas_mid_dict): the same ok and total per row, and the same
-stream bytes [0, total) where ok holds.
+stream bytes [0, total) where ok holds. Rows that the byte-wide budget
+refuses (encode.bw_fits) go to the packed-word kernel K6b in mid mode, which
+has depth 2 only: a level-8 row that wide is encoded at depth 2, as the
+Pallas wrappers encode it.
 """
 
 from __future__ import annotations
@@ -18,12 +21,9 @@ import torch
 
 from . import _build
 from .decode import MAX_SMEM
-from .encode import (MAX_DISTANCE, _common, _emit, _finish, _words,
-                     check_rows, check_windows, empty_outputs, out_width,
-                     plain_batch)
-
-# parse constants (own copies; tests pin them to the Pallas module's)
-MID_HASH_LOG = 13
+from .encode import (MAX_DISTANCE, MID_HASH_LOG, _common, _emit, _finish,
+                     _words, bw_fits, check_rows, check_windows,
+                     empty_outputs, out_width, plain_batch)
 
 launches = 0  # K2c/K2d launches by encode_batch_mid
 window_launches = 0  # K2c/K2d launches by encode_batch_mid_window
@@ -64,13 +64,17 @@ def _launch(data, lens, windows, wlens, D: int, depth4: bool, wstride: int,
 
 def encode_batch_mid(data: torch.Tensor, lens: torch.Tensor,
                      depth4: bool = False):
-    """data (B, N) uint8 zero-padded rows with N % 4 == 0 and N <= 64 KiB,
+    """data (B, N) uint8 zero-padded rows with N % 4 == 0 and N <= 4 MiB,
     lens (B,) int32 -> (out (B, CAP) uint8, totals (B,) int32, ok (B,)
     bool), with the depth-2 chain (K2c) or, with depth4, the depth-4 chain
-    (K2d). On CUDA tensors it launches the kernel on the current stream
-    without synchronising; on CPU tensors it runs the plain version."""
+    (K2d); rows that bw_fits refuses take K6b at depth 2. On CUDA tensors
+    it launches the kernel on the current stream without synchronising; on
+    CPU tensors it runs the plain version."""
     global launches
-    check_rows(data, lens)
+    _, N = check_rows(data, lens)
+    if not bw_fits(N + 8, out_width(N), mid=True, depth4=depth4):
+        from .encode_wide import encode_batch_wide
+        return encode_batch_wide(data, lens, mid=True)
     if data.device.type == "cpu":
         return encode_batch_mid_plain(data, lens, depth4)
     res = _launch(data, lens, None, None, 0, depth4, 1, 1)
@@ -88,11 +92,16 @@ def encode_batch_mid_window(data: torch.Tensor, lens: torch.Tensor,
     window position seeds the tables; a row whose index is not a multiple
     of `chunks` takes the row before it as its window). Returns (out (R,
     CAP) uint8, totals (R,) int32, ok (R,) bool). On CUDA tensors it
-    launches K2c or K2d on the current stream without synchronising; on CPU
-    tensors it runs the plain version."""
+    launches K2c or K2d (K6b at depth 2, which preloads every window
+    position, where bw_fits refuses the row) on the current stream without
+    synchronising; on CPU tensors it runs the plain version."""
     global window_launches
-    check_rows(data, lens)
+    _, N = check_rows(data, lens)
     D = check_windows(data, windows, wlens, chunks, wstride)
+    if not bw_fits(D + N + 8, out_width(N), mid=True, depth4=depth4):
+        # chunk rows (D == N <= 64 KiB) always fit
+        from .encode_wide import encode_batch_wide
+        return encode_batch_wide(data, lens, windows, wlens, mid=True)
     if data.device.type == "cpu":
         return encode_batch_mid_window_plain(data, lens, windows, wlens,
                                              depth4, wstride, chunks)
@@ -108,10 +117,12 @@ def encode_batch_mid_window(data: torch.Tensor, lens: torch.Tensor,
 
 def encode_row_mid_plain(row: bytes, n: int, N: int, window: bytes = b"",
                          wlen: int = 0, wstride: int = 1,
-                         depth4: bool = False) -> tuple[bytes, int, bool]:
+                         depth4: bool = False, guard: bool = True
+                         ) -> tuple[bytes, int, bool]:
     """One row of width N (n data bytes) after a right-aligned window of
     len(window) bytes, the last wlen of them usable: (stream, total, ok).
-    The stream is meaningful where ok holds (csrc/lz4_encode_mid.cuh)."""
+    The stream is meaningful where ok holds (csrc/lz4_encode_mid.cuh).
+    guard=False is K6b's emit (encode._emit)."""
     OT = out_width(N)
     base = len(window)
     first = base - min(max(wlen, 0), base)
@@ -170,18 +181,18 @@ def encode_row_mid_plain(row: bytes, n: int, N: int, window: bytes = b"",
             mpos -= 1
         mlen = sip - mip + 4
         mlen += _common(c, mip + mlen, mpos + mlen, matchlimit)
-        roomy = _emit(c, o, OT, anchor, mip, mpos, mlen)
+        roomy = _emit(c, o, OT, anchor, mip, mpos, mlen, guard)
         nip = mip + mlen
         insert(hashes[min(nip - 2, clip)], nip - 1)
         ip = anchor = nip
         overflow = not roomy or len(o) > OT - 16
-    return _finish(c, o, OT, anchor, end, n, overflow)
+    return _finish(c, o, OT, anchor, end, n, overflow, guard)
 
 
 def encode_batch_mid_plain(data: torch.Tensor, lens: torch.Tensor,
                            depth4: bool = False):
-    """Plain version of encode_batch_mid (same signature and results) on
-    CPU tensors."""
+    """Plain version of K2c/K2d (encode_batch_mid's results on rows that
+    bw_fits takes) on CPU tensors."""
     return plain_batch(data, lens, functools.partial(encode_row_mid_plain,
                                                      depth4=depth4))
 
@@ -190,8 +201,8 @@ def encode_batch_mid_window_plain(data: torch.Tensor, lens: torch.Tensor,
                                   windows: torch.Tensor, wlens: torch.Tensor,
                                   depth4: bool = False, wstride: int = 1,
                                   chunks: int = 1):
-    """Plain version of encode_batch_mid_window (same signature and results)
-    on CPU tensors."""
+    """Plain version of K2c/K2d after a window (encode_batch_mid_window's
+    results on rows that bw_fits takes) on CPU tensors."""
     return plain_batch(data, lens, functools.partial(
         encode_row_mid_plain, wstride=wstride, depth4=depth4), windows,
         wlens, chunks)

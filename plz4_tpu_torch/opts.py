@@ -68,9 +68,8 @@ class Options:
     # "native" | "device" | "auto". backend="device" runs the block codec
     # as CUDA kernels (parallel/batch.py): levels 1-12 (greedy, depth-2 and
     # depth-4 chain, deep hash chain), every block size (blocks over 64 KiB
-    # as 64 KiB chunks and records), dictionaries and linked blocks. Block
-    # checksums are not ported yet: check_device() refuses them with
-    # NotImplementedError naming the ROADMAP item that ports them.
+    # as 64 KiB chunks and records), dictionaries, linked blocks and block
+    # checksums (hashed on the device).
     backend: str = "auto"
     # write-side
     level: int = 1
@@ -112,14 +111,3 @@ class Options:
     def pending_budget(self) -> int:
         return calc_pending(
             self.pending_size, self.resolved_parallel(), self.block_size_idx)
-
-    def check_device(self, write: bool) -> None:
-        """Refuse device options that no kernel of the port covers yet
-        (ROADMAP Queue 1 item numbers) instead of running them silently
-        on the native codec. Every read option is covered; the batch layer
-        refuses frames with block checksums when it meets them."""
-        if not write:
-            return
-        if self.block_checksum:
-            raise NotImplementedError(
-                "device backend: block checksums (ROADMAP item 7)")

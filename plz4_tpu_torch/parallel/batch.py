@@ -19,6 +19,12 @@ Blocks over 64 KiB go to large.py as 64 KiB chunks (encode) and records
 (decode). Windows (dictionaries and linked predecessors) go to the
 window-prefix variants of the encode kernels, and to K3 to decode.
 
+Block checksums are hashed on the device by K7 (ops/xxh32.py), in the same
+stream and before the batch's event, as the JAX package does with
+xxh32_jax: an encode batch hashes its compressed candidates and its raw
+rows (assemble picks one per block), a decode batch its staged compressed
+rows. Raw pass-through blocks verify on the host (native.xxh32).
+
 On device="cpu" the same layer runs the kernels' plain versions
 synchronously (tests).
 """
@@ -36,9 +42,11 @@ from ..ops import decode as dec_ops
 from ..ops import encode as enc_ops
 from ..ops import encode_deep as deep_ops
 from ..ops import encode_mid as mid_ops
+from ..ops import xxh32 as xxh_ops
 
 EMPTY_BLOCK = b"\x00"  # 1-byte literals-only token: decodes to b""
-MAX_BLOCK = enc_ops.MAX_ROW  # widest block the kernels take (64 KiB)
+EMPTY_HASH = 0x02cc5d05  # xxh32(b"")
+MAX_BLOCK = enc_ops.MAX_ROW  # widest batch row (64 KiB); wider: large.py
 WINDOW = enc_ops.MAX_WINDOW  # window row width D of the dictionary paths
 
 
@@ -171,6 +179,25 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _encode_hashed(kernel):
+    """kernel followed by K7 over its compressed candidates (their first
+    min(total, CAP) bytes) and over the raw rows."""
+    def run(data, lens, *rest):
+        out, totals, ok = kernel(data, lens, *rest)
+        return (out, totals, ok,
+                xxh_ops.xxh32_batch(out, totals.clamp(max=out.shape[1])),
+                xxh_ops.xxh32_batch(data, lens))
+    return run
+
+
+def _decode_hashed(kernel):
+    """kernel preceded by K7 over the staged compressed rows."""
+    def run(comp, clens, *rest):
+        h = xxh_ops.xxh32_batch(comp, clens)
+        return (*kernel(comp, clens, *rest), h)
+    return run
+
+
 def _dispatch(kernel, host_args, dev: torch.device, extra=()):
     """Run kernel over host staging tensors on dev. Returns its outputs on
     the host and the CUDA event that marks them ready (None on the CPU,
@@ -200,8 +227,8 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
     snapshotted before dispatch (reference: async/writer.go:412-437).
     Returns [(stored_bytes, uncompressed_flag)] in order, applying the
     incompressible-fallback contract per block. The level picks the kernel
-    (dispatch_encode); device block checksums are not ported yet and raise
-    NotImplementedError.
+    (dispatch_encode); with_checksums=True appends each stored block's
+    xxh32, hashed on the device (zero host hashing).
     """
     if not blocks:
         return Pending(list, ())
@@ -209,17 +236,15 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
     for blk in blocks:
         if len(blk) > block_size:
             raise zerr.ErrSrcSize
-    if with_checksums:
-        raise NotImplementedError(
-            "device block checksums (ROADMAP item 7)")
     if block_size > MAX_BLOCK:
         from . import large
 
         if any(len(b) > large.CHUNK for b in blocks):
             # 256 KiB-4 MiB blocks: encode as window-prefixed 64 KiB
             # chunks in parallel, stitch into standard LZ4 blocks
-            return large.encode_large_begin(blocks, block_size, level=level,
-                                            dicts=dicts, device=device)
+            return large.encode_large_begin(
+                blocks, block_size, level=level, dicts=dicts,
+                with_checksums=with_checksums, device=device)
         block_size = large.CHUNK  # all blocks fit one chunk row
     dev = resolve_device(device)
     pinned = dev.type == "cuda"
@@ -249,26 +274,34 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
                 da[i, WINDOW - len(d):] = np.frombuffer(d, dtype=np.uint8)
                 dl[i] = len(d)
         staging += [darr, dlens]
-        outs_h, event = _dispatch(dispatch_encode_dict,
-                                  (arr, lens, darr, dlens), dev,
-                                  extra=(level,))
+        kernel, args = dispatch_encode_dict, (arr, lens, darr, dlens)
     else:
-        outs_h, event = _dispatch(dispatch_encode, (arr, lens), dev,
-                                  extra=(level,))
-    out, totals, compressible = outs_h
+        kernel, args = dispatch_encode, (arr, lens)
+    if with_checksums:
+        kernel = _encode_hashed(kernel)
+    outs_h, event = _dispatch(kernel, args, dev, extra=(level,))
+    out, totals, compressible = outs_h[:3]
 
     def assemble():
         outs = out.numpy()
         tot = totals.numpy()
         comp = compressible.numpy()
+        if with_checksums:
+            comp_hash, raw_hash = outs_h[3].numpy(), outs_h[4].numpy()
         results = []
         for i, blk in enumerate(blocks):
             if len(blk) == 0:
-                results.append((b"", True))
+                stored, raw = b"", True
             elif bool(comp[i]) and int(tot[i]) < len(blk):
-                results.append((outs[i, : int(tot[i])].tobytes(), False))
+                stored, raw = outs[i, : int(tot[i])].tobytes(), False
             else:
-                results.append((blk, True))
+                stored, raw = blk, True
+            if not with_checksums:
+                results.append((stored, raw))
+                continue
+            csum = (EMPTY_HASH if not blk else
+                    int(raw_hash[i]) if raw else int(comp_hash[i]))
+            results.append((stored, raw, csum))
         return results
 
     return Pending(assemble, staging + list(outs_h), event=event)
@@ -283,26 +316,37 @@ def decode_blocks_begin(stored: list[tuple[bytes, bool]], block_size: int,
 
     Uncompressed blocks pass through (reference: async/reader.go:149-163
     routes them around the workers). Blocks over 64 KiB go to large.py;
-    with a frame dictionary the blocks decode through K3. Block checksums
-    are not ported yet and raise NotImplementedError.
+    with a frame dictionary the blocks decode through K3. `checksums`, when
+    given, carries the frame's expected per-block xxh32 values: compressed
+    blocks verify in one K7 launch per batch, raw pass-through blocks on
+    the host at result() time, which raises ErrBlockHash before
+    ErrDecompress, in consume order.
     """
     if not stored:
         return Pending(list, ())
-    if checksums is not None:
-        raise NotImplementedError(
-            "device block checksums (ROADMAP item 7)")
     if block_size > MAX_BLOCK:
         from . import large
 
         # large-BD frames: split each block at sequence boundaries; K5
         # decodes the records of multi-record blocks in order
         return large.decode_large_begin(stored, block_size, dict_=dict_,
-                                        device=device)
+                                        checksums=checksums, device=device)
     comp_idx = [i for i, (_, unc) in enumerate(stored) if not unc]
     results: list[bytes | None] = [
         data if unc else None for (data, unc) in stored]
+
+    def verify_raw():
+        if checksums is None:
+            return
+        from .. import native
+
+        for i, (data, unc) in enumerate(stored):
+            if unc and checksums[i] is not None:
+                if native.xxh32(data) != checksums[i]:
+                    raise zerr.ErrBlockHash
+
     if not comp_idx:
-        return Pending(lambda: results, ())
+        return Pending(lambda: (verify_raw(), results)[1], ())
     # validate BEFORE taking pool buffers: a raise here must not leak them
     for i in comp_idx:
         if len(stored[i][0]) > block_size:
@@ -332,14 +376,24 @@ def decode_blocks_begin(stored: list[tuple[bytes, bool]], block_size: int,
         db[: WINDOW - len(d)] = 0
         db[WINDOW - len(d):] = np.frombuffer(d, dtype=np.uint8)
         staging.append(dbuf)
-        outs_h, event = _dispatch(dec_ops.decode_batch_dict, (arr, clens, dbuf),
-                                  dev, extra=(len(d), block_size))
+        kernel, args, extra = (dec_ops.decode_batch_dict, (arr, clens, dbuf),
+                               (len(d), block_size))
     else:
-        outs_h, event = _dispatch(dec_ops.decode_batch, (arr, clens), dev,
-                                  extra=(block_size,))
-    out, n_out, ok = outs_h
+        kernel, args, extra = dec_ops.decode_batch, (arr, clens), (block_size,)
+    hashed = checksums is not None and any(
+        checksums[i] is not None for i in comp_idx)
+    if hashed:
+        kernel = _decode_hashed(kernel)
+    outs_h, event = _dispatch(kernel, args, dev, extra=extra)
+    out, n_out, ok = outs_h[:3]
 
     def assemble():
+        verify_raw()
+        if hashed:
+            got = outs_h[3].numpy()
+            for j, i in enumerate(comp_idx):
+                if checksums[i] is not None and int(got[j]) != checksums[i]:
+                    raise zerr.ErrBlockHash
         outs = out.numpy()
         n = n_out.numpy()
         okv = ok.numpy()

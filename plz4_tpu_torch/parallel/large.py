@@ -21,10 +21,10 @@ handled as K chunks of 64 KiB:
     against the previous record's output. Bulk byte movement stays on the
     device; the host does O(sequences) pointer walking.
 
-Block checksums of large blocks are computed by the native xxh32 over the
-stitched (encode) or stored (decode) bytes, which exist on the host only.
-The batch layer refuses block checksums on the device backend for now
-(ROADMAP item 7), so those branches wait for it.
+Block checksums of large blocks are computed by the native xxh32 at
+assemble time over the stitched (encode) or stored (decode) bytes, which
+exist on the host only, as in the JAX package; blocks of at most 64 KiB in a
+large-BD frame go through the batch layer and hash on the device (K7).
 """
 
 from __future__ import annotations

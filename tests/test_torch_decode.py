@@ -155,7 +155,7 @@ def test_kernel_row_body_matches_pallas(name, host_lib):
 
 
 @pytest.mark.parametrize("C_,cap", [(65554, 65536), (65552, 65537),
-                                    (65552, 131072)])
+                                    (65552, (4 << 20) + 4)])
 def test_decode_batch_rejects_bad_widths(C_, cap):
     with pytest.raises(ValueError, match="row widths"):
         decode.decode_batch(torch.zeros((1, C_), dtype=torch.uint8),

@@ -135,7 +135,7 @@ def test_kernel_row_body_matches_pallas(name, host_lib):
 
 
 @pytest.mark.parametrize("shape,err", [
-    ((2, 65540), "row width"),
+    ((2, (4 << 20) + 4), "row width"),  # over the 4 MiB LZ4 block
     ((2, 130), "row width"),
 ])
 def test_encode_batch_rejects_bad_rows(shape, err):

@@ -1,6 +1,6 @@
 """The port's main path as a whole: a 64 KiB level-1 device frame, and the
-device options that the port covers or still refuses (the window paths'
-frame parity is in test_torch_frame_window.py, the level ladder's in
+device options that the port covers, block checksums among them (the window
+paths' frame parity is in test_torch_frame_window.py, the level ladder's in
 test_torch_frame_levels.py).
 
 The reference frame comes from the JAX package's real Pallas path, run on
@@ -101,13 +101,68 @@ def test_corrupt_block_raises_on_device():
                                   device="cpu")
 
 
-@pytest.mark.parametrize("opts,item", [
-    (dict(block_checksum=True), "item 7"),
-], ids=["block_checksum"])
-def test_uncovered_device_options_raise(opts, item):
-    kw = dict(PORT) | opts
-    with pytest.raises(NotImplementedError, match=item):
-        plz4_tpu_torch.compress(DATA, **kw)
+def test_checksummed_frame_byte_identical_to_pallas_path(pallas_path):
+    """Block checksums hashed on the device (K7's plain version here, the
+    JAX package's xxh32_jax there) give the same frame."""
+    ref = plz4_tpu.compress(DATA, backend="device", level=1,
+                            block_size_idx=BS, parallel=2,
+                            block_checksum=True)
+    assert plz4_tpu_torch.compress(DATA, block_checksum=True, **PORT) == ref
+
+
+WINDOW_DICT = b"dictionary " * 20 + DATA[:3000]
+CHECKSUM_OPTS = [dict(), dict(block_size_idx=plz4_tpu_torch.BLOCK_IDX_4MB),
+                 dict(dictionary=WINDOW_DICT), dict(block_linked=True)]
+CHECKSUM_IDS = ["64KB", "4MB", "dict", "linked"]
+
+
+@pytest.mark.parametrize("opts", CHECKSUM_OPTS, ids=CHECKSUM_IDS)
+def test_block_checksum_frames_round_trip(opts):
+    """Writer and Reader with block checksums on the device backend: every
+    block carries its xxh32, both decoders read the frame, and a flipped
+    byte in a block raises ErrBlockHash."""
+    kw = dict(PORT) | dict(block_checksum=True) | opts
+    dst = io.BytesIO()
+    with plz4_tpu_torch.Writer(dst, **kw) as w:
+        for i in range(0, len(DATA), 50_000):
+            w.write(DATA[i:i + 50_000])
+    frame = dst.getvalue()
+    assert frame[4] & 0x10  # FLG: block checksums
+    d = opts.get("dictionary")
+    r = plz4_tpu_torch.Reader(io.BytesIO(frame), backend="device",
+                              device="cpu", dictionary=d)
+    assert r.read() == DATA
+    assert plz4_tpu_torch.decompress(frame, backend="native",
+                                     dictionary=d) == DATA
+    assert frame == plz4_tpu_torch.compress(
+        DATA, **(dict(PORT) | dict(block_checksum=True) | opts))
+    bad = bytearray(frame)
+    bad[len(frame) // 3] ^= 0x5A
+    with pytest.raises(plz4_tpu_torch.errors.Lz4Error) as ei:
+        plz4_tpu_torch.decompress(bytes(bad), backend="device", device="cpu",
+                                  dictionary=d)
+    assert ei.value is plz4_tpu_torch.errors.ErrBlockHash
+
+
+def test_block_checksums_hash_on_device(monkeypatch):
+    """At 64 KiB blocks the device path computes and verifies every block
+    checksum on the device: zero host native.xxh32 calls per block on write
+    and on read (the JAX package's tests/test_device_backend.py pin)."""
+    calls = {"n": 0}
+    real = native.xxh32
+
+    def counting(data, seed=0):
+        calls["n"] += 1
+        return real(data, seed)
+
+    monkeypatch.setattr(native, "xxh32", counting)
+    data = make_compressible(200000, seed=61)
+    kw = dict(PORT) | dict(block_checksum=True, content_checksum=False)
+    frame = plz4_tpu_torch.compress(data, **kw)
+    assert calls["n"] == 0, f"writer did {calls['n']} host block hashes"
+    assert plz4_tpu_torch.decompress(frame, backend="device",
+                                     device="cpu") == data
+    assert calls["n"] == 0, f"reader did {calls['n']} host block hashes"
 
 
 @pytest.mark.parametrize("level", [3, 12], ids=["level3", "level12"])
@@ -121,9 +176,6 @@ def test_device_levels_round_trip(level):
     assert plz4_tpu_torch.decompress(frame, backend="device",
                                      device="cpu") == DATA
     assert plz4_tpu_torch.decompress(frame, backend="native") == DATA
-
-
-WINDOW_DICT = b"dictionary " * 20 + DATA[:3000]
 
 
 @pytest.mark.parametrize("opts", [
@@ -152,14 +204,23 @@ def test_default_block_size_round_trips_on_device():
     assert plz4_tpu_torch.decompress(frame, backend="native") == DATA
 
 
-@pytest.mark.parametrize("opts,item", [
-    (dict(block_checksum=True), "item 7"),
-], ids=["block_checksum"])
-def test_device_reader_refuses_uncovered_frames(opts, item):
+@pytest.mark.parametrize("idx", [BS, plz4_tpu_torch.BLOCK_IDX_4MB],
+                         ids=["64KB", "4MB"])
+def test_device_reader_verifies_native_block_checksums(idx):
+    """A native frame with block checksums: the device Reader verifies them
+    (on the device for compressed blocks of at most 64 KiB, on the host for
+    raw and large blocks) and refuses a block with a flipped byte."""
     frame = plz4_tpu_torch.compress(DATA, backend="native",
-                                    **(dict(block_size_idx=BS) | opts))
-    with pytest.raises(NotImplementedError, match=item):
-        plz4_tpu_torch.decompress(frame, backend="device", device="cpu")
+                                    block_size_idx=idx, block_checksum=True)
+    assert plz4_tpu_torch.decompress(frame, backend="device",
+                                     device="cpu") == DATA
+    for pos in (30, len(frame) - 200):  # a compressed and the raw tail block
+        bad = bytearray(frame)
+        bad[pos] ^= 0x01
+        with pytest.raises(plz4_tpu_torch.errors.Lz4Error) as ei:
+            plz4_tpu_torch.decompress(bytes(bad), backend="device",
+                                      device="cpu")
+        assert ei.value is plz4_tpu_torch.errors.ErrBlockHash
 
 
 @pytest.mark.parametrize("idx", [plz4_tpu_torch.BLOCK_IDX_256KB,
@@ -203,16 +264,43 @@ def test_device_reader_decodes_dictionary_frame(idx):
     assert r.read() == DATA
 
 
-def test_batch_layer_refusals_leak_no_buffers():
-    blocks = [b"abc" * 100]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        batch.encode_blocks_begin(blocks, 65536, device="cpu",
-                                  with_checksums=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        batch.decode_blocks_begin([(b"\x00", False)], 65536,
-                                  checksums=[0], device="cpu")
-    with pytest.raises(plz4_tpu_torch.errors.Lz4Error):
+def test_batch_layer_errors_leak_no_buffers(monkeypatch):
+    """Every staging buffer a batch takes goes back to the pool, also when
+    result() raises ErrBlockHash or ErrDecompress; a block over the block
+    size raises before anything is taken."""
+    taken, given = [], []
+    take, give = batch._pool.take, batch._pool.give
+    monkeypatch.setattr(batch._pool, "take",
+                        lambda *a: taken.append(take(*a)) or taken[-1])
+    monkeypatch.setattr(batch._pool, "give",
+                        lambda t: given.append(t) or give(t))
+    errors = plz4_tpu_torch.errors
+    with pytest.raises(errors.Lz4Error):
         batch.encode_blocks_begin([b"x" * 70000], 65536, device="cpu")
+    assert not taken
+    blocks = [b"abc" * 100, make_incompressible(3000, seed=7), b""]
+    res = batch.encode_blocks_begin(blocks, 65536, device="cpu",
+                                    with_checksums=True).result()
+    assert [c for _, _, c in res] == [native.xxh32(s) for s, _, _ in res]
+    stored = [(s, raw) for s, raw, _ in res]
+    sums = [c for _, _, c in res]
+    assert batch.decode_blocks_begin(stored, 65536, checksums=sums,
+                                     device="cpu").result() == blocks
+    for bad_sums, bad_stored, err in (
+            ([sums[0] ^ 1] + sums[1:], stored, errors.ErrBlockHash),
+            (sums[:1] + [sums[1] ^ 1] + sums[2:], stored, errors.ErrBlockHash),
+            (sums, [(b"\x40" + stored[0][0][1:], False)] + stored[1:],
+             errors.ErrDecompress)):
+        if err is errors.ErrDecompress:
+            bad_sums = [native.xxh32(bad_stored[0][0])] + sums[1:]
+        p = batch.decode_blocks_begin(bad_stored, 65536, checksums=bad_sums,
+                                      device="cpu")
+        with pytest.raises(errors.Lz4Error) as ei:
+            p.result()
+        assert ei.value is err
+    # (on the CPU the plain versions' outputs join the pool too)
+    assert len(taken) > 0
+    assert {id(t) for t in taken} <= {id(t) for t in given}
 
 
 def test_incompressible_fallback_and_empty_rows():

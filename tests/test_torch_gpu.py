@@ -15,7 +15,8 @@ import torch
 
 import plz4_tpu_torch
 from plz4_tpu_torch import corpus, native
-from plz4_tpu_torch.ops import decode, encode, encode_deep, encode_mid
+from plz4_tpu_torch.ops import (decode, encode, encode_deep, encode_mid,
+                                encode_wide, xxh32)
 from plz4_tpu_torch.parallel import large
 
 N = 65536
@@ -260,6 +261,98 @@ def test_device_window_frame_matches_plain_frame(cuda, opts):
 def test_device_level_frame_matches_plain_frame(cuda, level, block):
     data = corpus.silesia_like(5 * N + 4321)
     kw = dict(backend="device", level=level, device_batch=4)
+    if block == "64KB":
+        kw["block_size_idx"] = plz4_tpu_torch.BLOCK_IDX_64KB
+    frame = plz4_tpu_torch.compress(data, device="cuda", **kw)
+    assert frame == plz4_tpu_torch.compress(data, device="cpu", **kw)
+    assert plz4_tpu_torch.decompress(frame, backend="device") == data
+    assert plz4_tpu_torch.decompress(frame, backend="native") == data
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 0x9E3779B1])
+def test_xxh32_kernel_matches_plain(cuda, seed):
+    """K7 on main-path rows, edge lengths 0-40 and rows of an odd width."""
+    text = corpus.silesia_like(8 * N)
+    blocks = [text[i:i + N] for i in range(0, 8 * N, N)]
+    blocks += [text[:n] for n in range(41)]
+    for width in (N, N + 3):
+        rows, lens = _rows(blocks, width)
+        before = xxh32.launches
+        got = xxh32.xxh32_batch(rows.to(cuda), lens.to(cuda), seed).cpu()
+        assert xxh32.launches == before + 1
+        assert torch.equal(got, xxh32.xxh32_batch_plain(rows, lens, seed))
+        assert got.tolist() == [native.xxh32(b, seed) for b in blocks]
+
+
+def _wide_rows(width):
+    text = corpus.silesia_like(3 * width, seed=9)
+    rng = np.random.default_rng(29)
+    return _rows([text[:width], text[width:2 * width - 777],
+                  rng.integers(0, 256, width, dtype=np.uint8).tobytes(),
+                  b"\x00" * width, b"", text[:5000]], width)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mid", [False, True], ids=["greedy", "mid"])
+@pytest.mark.parametrize("window", [False, True], ids=["plain", "window"])
+def test_encode_wide_kernel_matches_plain(cuda, mid, window):
+    """K6b at 256 KiB rows, plain and after full, partial and empty 64 KiB
+    windows."""
+    rows, lens = _wide_rows(4 * N)
+    args = [rows, lens]
+    if window:
+        wins = torch.from_numpy(np.frombuffer(
+            corpus.silesia_like(N, seed=3) * 6, np.uint8).reshape(6, N).copy())
+        args += [wins, torch.tensor([N, 3000, 0, N, N, 12], dtype=torch.int32)]
+    else:
+        args += [None, None]
+    counter = "mid_launches" if mid else "launches"
+    before = getattr(encode_wide, counter)
+    kern = encode_wide.encode_batch_wide(
+        *[a.to(cuda) if a is not None else None for a in args], mid=mid)
+    assert getattr(encode_wide, counter) == before + 1
+    plain = encode_wide.encode_batch_wide_plain(*args, mid=mid)
+    _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
+    assert bool(plain[2][0]) and not bool(plain[2][2])
+
+
+@pytest.mark.gpu
+def test_decode_wide_kernel_matches_plain(cuda):
+    """K6a at 256 KiB blocks: native and K6b streams, corrupt and truncated
+    ones, and a bad literal run whose n_out passes out_cap."""
+    cap = 4 * N
+    rows, lens = _wide_rows(cap)
+    out, tot, ok = encode_wide.encode_batch_wide_plain(rows, lens)
+    streams = [out[i, :tot[i]].numpy().tobytes() for i in range(len(ok))
+               if ok[i]]
+    streams += [native.compress(rows[i, :lens[i]].numpy().tobytes(), level=1)
+                for i in range(len(lens))]
+    rng = np.random.default_rng(31)
+    for k in range(8):
+        s = bytearray(streams[k % 3])
+        if k % 2:
+            s = s[: int(rng.integers(1, len(s)))]
+        else:
+            s[int(rng.integers(len(s)))] ^= 0xFF
+        streams.append(bytes(s))
+    big = cap + 4000
+    streams += [bytes([0x14, 0x41, 1, 0, 0xF0]) + b"\xff" * (big // 255)
+                + bytes([big % 255]) + b"b" * 64, bytes([0x04, 0, 0])]
+    crow, clens = _rows(streams, max(len(s) for s in streams) + 16 & ~3)
+    before = decode.wide_launches
+    kern = decode.decode_batch(crow.to(cuda), clens.to(cuda), cap)
+    assert decode.wide_launches == before + 1
+    plain = decode.decode_batch_wide_plain(crow, clens, cap)
+    _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
+    assert int(plain[1][-2]) > cap and not bool(plain[2][-2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", ["64KB", "4MB"])
+def test_device_checksum_frame_matches_plain_frame(cuda, block):
+    data = corpus.silesia_like(5 * N + 4321)
+    kw = dict(backend="device", level=1, device_batch=4, block_checksum=True)
     if block == "64KB":
         kw["block_size_idx"] = plz4_tpu_torch.BLOCK_IDX_64KB
     frame = plz4_tpu_torch.compress(data, device="cuda", **kw)

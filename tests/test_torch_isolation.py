@@ -37,6 +37,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for mod in ("plz4_tpu_torch.ops.encode", "plz4_tpu_torch.ops.decode",
+                "plz4_tpu_torch.ops.encode_wide", "plz4_tpu_torch.ops.xxh32",
                 "plz4_tpu_torch.parallel.batch",
                 "plz4_tpu_torch.parallel.large", "plz4_tpu_torch.api",
                 "plz4_tpu_torch.native", "plz4_tpu_torch.engine.writer"):
