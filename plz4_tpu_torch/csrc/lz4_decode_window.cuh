@@ -1,9 +1,12 @@
-// LZ4 decode against a right-aligned window, one row: the function that
-// the Pallas kernels plz4_tpu/ops/decode_pallas.py:_decode_dict_kernel
-// (strict and record mode) and _decode_kernel_bw_rec (record mode)
-// compute. Their word copies, 8-wide wild copies and straight-line fast
-// tiers return the same (ip, op, ok) and the same bytes [0, op) as their
-// byte-serial careful path, so one exact loop stands for all of them.
+// LZ4 decode against a right-aligned window: the function that the Pallas
+// kernels plz4_tpu/ops/decode_pallas.py:_decode_dict_kernel (strict and
+// record mode) and _decode_kernel_bw_rec (record mode) compute. Their word
+// copies, 8-wide wild copies and straight-line fast tiers return the same
+// (ip, op, ok) and the same bytes [0, op) as their byte-serial careful
+// path, so one exact loop stands for all of them. Two row bodies share the
+// rules below: lz4t_decode_window_row, one thread, strict mode (K3), and
+// lz4t_decode_record, record mode (K5 and K6c), whose scalar parse hands
+// each sequence's copies to a warp (lz4t_copy_seq_lanes).
 //
 // meta = [clen, dlen, pre_lit, pre_skip, pre_moff, pre_mlen, out_len]
 // (the native lz4r_chunk_split record layout, dlen in meta[1]); win holds W
@@ -12,7 +15,7 @@
 // so a match that ends exactly at the window/output boundary reads the
 // window's last byte.
 //
-// kStrict (K3, whole-block decode against a frame dictionary): the carry
+// Strict (K3, whole-block decode against a frame dictionary): the carry
 // fields are zero, ok starts as clen > 0, and a sequence that would write
 // past out_len is bad (nothing of it is copied).
 // Record mode (K5, and K6c which computes the same function): the
@@ -39,9 +42,24 @@
 // window; neither clamp changes a result the host's records can produce.
 // A carried offset below 1 copies as offset 1, as _decode_kernel_bw_rec's
 // in-record copier does.
+//
+// K5's copies (lz4t_copy_record_lanes) are byte-parallel: a step writes
+// 256 consecutive output bytes [S, S + 256), lane i of copy warp w the
+// byte x = S + 32 w + i. In the byte-serial copy a literal byte is an
+// input byte, and a match byte at offset off is the output byte off before
+// it, which for a match starting at om equals (by induction over a match
+// that overlaps itself) the byte at om - off + ((x - om) mod off). So each
+// byte resolves to an input byte, a window byte (index y < 0: win[W + y],
+// 0 before the window) or an output byte y < x, taken as x - off when off
+// >= 32 and in the periodic form when off < 32. Where y lies in the same
+// step (y >= S) the lane resolves y in turn; y belongs to an earlier
+// sequence or to the same sequence's literals, so the rounds end. Every
+// lane then loads its resolved source, input, window or output before S,
+// and stores its byte: no lane reads what the step writes, and the steps,
+// ordered by a barrier among the copy warps, give the byte-serial bytes.
 #pragma once
 
-#include "lz4_common.cuh"
+#include "lz4_lanes.cuh"
 
 // m match bytes to o[op..) from op - off: sources before the row's first
 // output byte come from the window, the rest from the output itself
@@ -58,7 +76,7 @@ LZ4T_HD void lz4t_copy_match_w(uint8_t* o, int op, int off, int m,
 }
 
 // c: the compressed row, C bytes; win: W window bytes; o: cap output bytes.
-template <bool kStrict>
+// Strict mode, one thread (K3).
 LZ4T_HD void lz4t_decode_window_row(const uint8_t* c, int C,
                                     const int32_t* meta, const uint8_t* win,
                                     int W, uint8_t* o, int cap, int* n_out,
@@ -66,49 +84,20 @@ LZ4T_HD void lz4t_decode_window_row(const uint8_t* c, int C,
   const int clen = meta[0];
   const int dlen = meta[1];
   const int out_len = lz4t_min(meta[6], cap);
-  int ip, op, ok, done;
-  if (kStrict) {
-    ip = 0;
-    op = 0;
-    ok = clen > 0;
-    done = clen <= 0;
-  } else {
-    const int pre_lit = meta[2], pre_skip = meta[3];
-    const int pre_moff = meta[4], pre_mlen = meta[5];
-    int bad = (pre_lit > clen) | (pre_lit + pre_mlen > out_len) |
-              ((pre_mlen > 0) & (pre_moff > pre_lit + dlen)) |
-              (pre_lit < 0) | (pre_mlen < 0);
-    const int p_lit = bad ? 0 : pre_lit;
-    for (int i = 0; i < p_lit; i++) o[i] = (uint8_t)lz4t_rdz(c, C, i);
-    const int p_m = bad ? 0 : pre_mlen;
-    lz4t_copy_match_w(o, p_lit, pre_moff, p_m, win, W);
-    ip = p_lit + pre_skip;
-    op = p_lit + p_m;
-    bad |= ip > clen;
-    ok = !bad;
-    done = bad | (ip >= clen);
-  }
+  int ip = 0, op = 0, ok = clen > 0, done = clen <= 0;
   while (!done) {
     int bad = ip >= clen;
     const int token = lz4t_rdz(c, C, ip);
     ip++;
     int lit = token >> 4;
     if (lit == 15) ip = lz4t_varint_z(c, C, ip, &lit);
-    int lit_n, clip = 0;
-    if (kStrict) {
-      bad |= (ip + lit > clen) | (op + lit > out_len);
-      lit_n = bad ? 0 : lit;
-    } else {
-      lit_n = lz4t_min(lit, out_len - op);
-      bad |= (lit_n < 0) | (ip + lit_n > clen);
-      if (bad) lit_n = 0;
-      clip = !bad && lit_n < lit;
-    }
+    bad |= (ip + lit > clen) | (op + lit > out_len);
+    const int lit_n = bad ? 0 : lit;
     for (int i = 0; i < lit_n; i++)
       o[op + i] = (uint8_t)lz4t_rdz(c, C, ip + i);
     ip += lit_n;
     op += lit_n;
-    const int fin = (ip >= clen) | bad | clip;
+    const int fin = (ip >= clen) | bad;
     if (!fin) {
       const int off = lz4t_rdz(c, C, ip) | (lz4t_rdz(c, C, ip + 1) << 8);
       ip += 2;
@@ -116,18 +105,179 @@ LZ4T_HD void lz4t_decode_window_row(const uint8_t* c, int C,
       int ml = token & 15;
       if (ml == 15) ip = lz4t_varint_z(c, C, ip, &ml);
       ml += 4;
-      bad |= off > op + dlen;
-      int m_n;
-      if (kStrict) {
-        bad |= op + ml > out_len;
-        m_n = bad ? 0 : ml;
-      } else {
-        m_n = bad ? 0 : lz4t_min(ml, out_len - op);
-        clip = !bad && (m_n < ml || op + m_n == out_len);
-      }
+      bad |= (off > op + dlen) | (op + ml > out_len);
+      const int m_n = bad ? 0 : ml;
       lz4t_copy_match_w(o, op, off, m_n, win, W);
       op += m_n;
     }
+    ok = ok && !bad;
+    done = fin | bad;
+  }
+  *n_out = op;
+  *ok_out = ok && ip == clen;
+}
+
+#define LZ4T_COPY_WARPS 8  // K5's copy warps
+
+// The copies of one record (K5): its n sequences seq[4 k ..] = (ip, n_lit,
+// off, m) in order, each writing n_lit literals from c[ip..) and then m
+// match bytes at offset off (below 1 copied as 1) where the one before
+// ended, to o[0..) against the window win (see the file comment). Run by
+// LZ4T_COPY_WARPS warps together, warp w (on the card; the host runs them
+// all in turn) writing bytes S + 32 w .. + 31 of each 256-byte step S.
+LZ4T_HD void lz4t_copy_record_lanes(const uint8_t* c, int C, uint8_t* o,
+                                    const uint8_t* win, int W,
+                                    const int32_t* seq, int n, int w) {
+#if defined(__CUDA_ARCH__)
+  const int w0 = w, w1 = w + 1;
+#else
+  const int w0 = 0 * w, w1 = LZ4T_COPY_WARPS;
+#endif
+  const int span = LZ4T_COPY_WARPS * LZ4T_LANES;
+  // the batch: 32 sequences, lane j's sequence bbase + j, starting at op
+  // and ending at end, the batch's output [bop, bend)
+  int ip[LZ4T_NL], nl[LZ4T_NL], off[LZ4T_NL], m[LZ4T_NL], op[LZ4T_NL],
+      end[LZ4T_NL];
+  // a step's lanes: the byte x each resolves, and its state: 0 pending,
+  // 1 input byte src, 2 output byte src (window below 0), 3 idle
+  int x[LZ4T_NL], st[LZ4T_NL], src[LZ4T_NL];
+  int bop = 0;
+  for (int bbase = 0; bbase < n; bbase += LZ4T_LANES) {
+    lz4t_lanes([&](int i) {
+      const int l = lz4t_li(i), q = bbase + i;
+      const int32_t* e = seq + 4 * (size_t)q;
+      ip[l] = q < n ? e[0] : 0;
+      nl[l] = q < n ? e[1] : 0;
+      off[l] = q < n ? lz4t_max(e[2], 1) : 1;
+      m[l] = q < n ? e[3] : 0;
+      end[l] = nl[l] + m[l];
+    });
+    lz4t_lane_scan(end);
+    lz4t_lanes([&](int i) {
+      const int l = lz4t_li(i);
+      end[l] += bop;
+      op[l] = end[l] - nl[l] - m[l];
+    });
+    const int bend = lz4t_lane_get(end, LZ4T_LANES - 1);
+    int k0 = 0;
+    for (int S = bop; S < bend; S += span) {
+      // the batch sequences that overlap [S, S + span): k0 .. k1
+      while (lz4t_lane_get(end, k0) <= S) k0++;
+      const int last = lz4t_min(S + span, bend) - 1;
+      const int k1 = lz4t_fls(
+          lz4t_ballot([&](int i) { return op[lz4t_li(i)] <= last; }));
+      // (on the host the last warp first: a warp that read another's bytes
+      // of the same step would read them unwritten)
+      for (int ww = w1 - 1; ww >= w0; ww--) {
+        const int s = S + ww * LZ4T_LANES;
+        lz4t_lanes([&](int i) {
+          const int l = lz4t_li(i);
+          x[l] = s + i;
+          st[l] = s + i < bend ? 0 : 3;
+        });
+        // resolve: a match byte whose source lies in this step takes that
+        // source's place (its sequence is an earlier one, or the same
+        // sequence's literals), until every source is input or an earlier
+        // step's output
+        while (lz4t_ballot([&](int i) { return st[lz4t_li(i)] == 0; })) {
+          lz4t_lanes([&](int i) {
+            const int l = lz4t_li(i);
+            int k = k0;
+            for (int q = k0 + 1; q <= k1; q++)
+              if (lz4t_lane_get(op, q) <= x[l]) k = q;
+            const int kop = lz4t_lane_get(op, k), knl = lz4t_lane_get(nl, k);
+            const int kip = lz4t_lane_get(ip, k), koff = lz4t_lane_get(off, k);
+            if (st[l] != 0) return;
+            const int om = kop + knl;
+            if (x[l] < om) {
+              st[l] = 1;
+              src[l] = kip + x[l] - kop;
+              return;
+            }
+            const int y = koff >= LZ4T_LANES ? x[l] - koff
+                                             : om - koff + (x[l] - om) % koff;
+            if (y < S) {
+              st[l] = 2;
+              src[l] = y;
+            } else {
+              x[l] = y;
+            }
+          });
+        }
+        lz4t_lanes_copy(
+            [&](int i) {
+              const int l = lz4t_li(i), y = src[l];
+              if (st[l] == 1) return lz4t_rdz(c, C, y);
+              if (st[l] == 3) return -1;
+              if (y >= 0) return (int)o[y];
+              return W + y >= 0 ? (int)win[W + y] : 0;
+            },
+            [&](int i, int v) { o[s + i] = (uint8_t)v; });
+      }
+#if defined(__CUDA_ARCH__)
+      // the step's bytes are written before any copy warp reads them
+      asm volatile("bar.sync 1, %0;" ::"r"(span));
+#endif
+    }
+    bop = bend;
+  }
+}
+
+// The parse of one record, record mode (K5). It is scalar and hands each
+// sequence's copies to emit(ip, n_lit, off, m) in order, each writing at
+// the output position where the one before ended (the prologue at 0), for
+// lz4t_copy_record_lanes. c: the record's input slice, C
+// bytes; out_len is clamped to cap. A sequence that copies nothing is not
+// handed over, and every one but the record's first and last copies 4 or
+// more match bytes, so a record hands over at most cap / 4 + 2.
+template <class Emit>
+LZ4T_HD void lz4t_decode_record(const uint8_t* c, int C, const int32_t* meta,
+                                int cap, Emit& emit, int* n_out,
+                                int* ok_out) {
+  const int clen = meta[0];
+  const int dlen = meta[1];
+  const int out_len = lz4t_min(meta[6], cap);
+  const int pre_lit = meta[2], pre_skip = meta[3];
+  const int pre_moff = meta[4], pre_mlen = meta[5];
+  int bad = (pre_lit > clen) | (pre_lit + pre_mlen > out_len) |
+            ((pre_mlen > 0) & (pre_moff > pre_lit + dlen)) | (pre_lit < 0) |
+            (pre_mlen < 0);
+  const int p_lit = bad ? 0 : pre_lit;
+  const int p_m = bad ? 0 : pre_mlen;
+  if (p_lit | p_m) emit(0, p_lit, pre_moff, p_m);
+  int ip = p_lit + pre_skip;
+  int op = p_lit + p_m;
+  bad |= ip > clen;
+  int ok = !bad;
+  int done = bad | (ip >= clen);
+  while (!done) {
+    bad = ip >= clen;
+    const int token = lz4t_rdz(c, C, ip);
+    ip++;
+    int lit = token >> 4;
+    if (lit == 15) ip = lz4t_varint_z(c, C, ip, &lit);
+    int lit_n = lz4t_min(lit, out_len - op);
+    bad |= (lit_n < 0) | (ip + lit_n > clen);
+    if (bad) lit_n = 0;
+    int clip = !bad && lit_n < lit;
+    const int lit_ip = ip;
+    ip += lit_n;
+    op += lit_n;
+    const int fin = (ip >= clen) | bad | clip;
+    int off = 1, m_n = 0;
+    if (!fin) {
+      off = lz4t_rdz(c, C, ip) | (lz4t_rdz(c, C, ip + 1) << 8);
+      ip += 2;
+      bad |= (ip > clen) | (off == 0);
+      int ml = token & 15;
+      if (ml == 15) ip = lz4t_varint_z(c, C, ip, &ml);
+      ml += 4;
+      bad |= off > op + dlen;
+      m_n = bad ? 0 : lz4t_min(ml, out_len - op);
+      clip = !bad && (m_n < ml || op + m_n == out_len);
+      op += m_n;
+    }
+    if (lit_n | m_n) emit(lit_ip, lit_n, off, m_n);
     ok = ok && !bad;
     done = fin | bad | clip;
   }

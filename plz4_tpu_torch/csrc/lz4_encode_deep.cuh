@@ -23,105 +23,306 @@
 //   * after the emit, positions [hi, min(nip, mflimit + 1)) are inserted;
 //   * emit, room guard, overflow and ok exactly as lz4t_encode_row.
 //
-// The Pallas kernel has a second chain storage for window rows: u16 deltas
-// to the previous position, 0 ending the chain (a delta over 65535, or no
-// previous position). It follows the same links: where a delta would
-// overflow, the previous position lies below cand - 65535 < p - 65535 <= lo
-// and the i32 walk stops there too. So one chain of u32 links serves both
-// variants; only hash_log differs. The chain needs no zeroing: a walk only
-// follows positions that were inserted, and inserting p writes chain[p].
+// The chain is a pure function of the row, so it is built before the
+// parse and the parse inserts nothing. The parse inserts every position of
+// [first, mflimit] exactly once and in increasing order: the preload
+// [first, base), then each scanned sip, the lazy positions mip + 1 .. hi -
+// 1, and after the emit [hi, min(nip, mflimit + 1)), where nip >= hi
+// (a lazy loop that stops at p2 leaves mip = p2 - 1 and nip >= mip + 4 >
+// hi; one that moves or never runs leaves hi = mip + 1 <= nip; backward
+// extension keeps nip), and the next scan starts at nip. No position past
+// mflimit is inserted, and a walk from p reads the links of p and of
+// candidates below p. So every link a walk reads is chain[p] = 1 +
+// max{q in [first, p) : hash(q) = hash(p)}, or 0 without such a q:
+// lz4t_deep_build computes exactly that for [first, mflimit], one warp,
+// 32 positions per step (__match_any_sync gives a lane its predecessor
+// inside the step, the head table the one before it).
+//
+// The links are stored as u16 deltas to the previous position, 0 ending
+// the chain (a delta over 65535, or no previous position), which is the
+// Pallas kernel's own storage for window rows. They follow the same links
+// as i32 positions: where a delta would overflow, the previous position
+// lies below cand - 65535 <= p - 65535 <= lo, and the walk stops there
+// too. So one chain serves both of the Pallas kernel's variants; only
+// hash_log differs.
+//
+// Walks read the deltas from a ring of 65,536 u16 slots (position q in
+// slot q & 65535) and, for positions whose slot was reused, from the whole
+// row's deltas (lz4t_ring_link). A walk from p reads links of positions in
+// [p - 65535, p] only, 65,536 consecutive positions, one per slot. The
+// ring holds positions 0 .. 65535 first and then, where the row is longer,
+// the rest of the row: the slot of q holds q unless q + 65536 < loaded.
+//
+// The walks themselves leave the serial path. A walk's result depends only
+// on its position p and its starting length: a candidate is taken when its
+// length l beats the best so far, and the probe byte at the best length
+// only skips candidates that could not (l > best means byte best agrees).
+// So walk(p, min_len) = (max(min_len, L), the first candidate reaching L)
+// when L > min_len, else (min_len, none), where L is the best length among
+// p's first `tries` candidates at or above lo. The walk table holds, for
+// every position of the block, L capped at 64 and that first candidate
+// (lz4t_walk_entry), computed by all the block's threads at once. The
+// parse looks walks up there; a capped entry (L >= 64) is walked again in
+// full, since L is then unknown and ties at the cap may hide the right
+// candidate. Capping at 64 keeps the lazy test exact: the lazy loop only
+// runs while the best length is below 64, and a capped L beats it. The
+// scan looks for the first entry with a match, 32 per step.
+//
+// The parse runs on the 32 lanes of a warp together (lz4_lanes.cuh): the
+// lazy loop, backward extension and emit are the same scalar code on
+// every lane, and the rest is split among the lanes with the same result
+// as the serial loops: the scan's 32 entries, the literals of a sequence
+// (32 bytes per step), and a full walk's extension (32 byte pairs per
+// step, the first mismatch or matchlimit by __ballot_sync: the same l).
 #pragma once
 
 #include "lz4_encode.cuh"
+#include "lz4_lanes.cuh"
 
 #define LZ4T_DEEP_LAZY_CAP 64
 #define LZ4T_DEEP_MIN_MATCH 4
+#define LZ4T_DEEP_RING 65536  // chain ring slots, u16 deltas
+#define LZ4T_DEEP_LCAP 64     // walk-table lengths are capped here
 
-LZ4T_HD void lz4t_deep_insert(const uint8_t* c, int p, int hash_log,
-                              uint32_t* head, uint32_t* chain) {
-  const uint32_t h = (lz4t_rd32(c, p) * LZ4T_HASH_MUL) >> (32 - hash_log);
-  chain[p] = head[h];
-  head[h] = (uint32_t)(p + 1);
+// Build key of the lane at position p: its hash, or a key no other lane
+// has past the last position.
+LZ4T_HD uint32_t lz4t_build_key(const uint8_t* c, int p, int last, int lane,
+                                int hash_log) {
+  return p <= last ? (lz4t_rd32(c, p) * LZ4T_HASH_MUL) >> (32 - hash_log)
+                   : 0x80000000u | (uint32_t)lane;
 }
 
-// Walk p's chain (p already inserted) for a match longer than min_len that
-// ends before matchlimit. Returns the best length (min_len when none was
-// found) and sets *best_pos (-1 when none).
+// The previous position of the lane's bucket: the highest lower lane of
+// its group in the step starting at t0, else the bucket's head (-1 when
+// empty or past the last position).
+LZ4T_HD int lz4t_build_prev(int t0, int lane, uint32_t peers,
+                            const uint32_t* head, uint32_t key) {
+  if (key & 0x80000000u) return -1;
+  const uint32_t lower = peers & ((1u << lane) - 1);
+  return lower ? t0 + lz4t_fls(lower) : (int)head[key] - 1;
+}
+
+// the u16 delta of p to its previous position, 0 ending the chain
+LZ4T_HD uint16_t lz4t_build_delta(int p, int prev) {
+  return (uint16_t)(prev >= 0 && p - prev <= LZ4T_MAX_DISTANCE ? p - prev
+                                                                : 0);
+}
+
+// The chain of positions [first, last] into delta (see the file comment):
+// head is 2^hash_log entries, zeroed by the caller.
+LZ4T_HD void lz4t_deep_build(const uint8_t* c, int first, int last,
+                             int hash_log, uint32_t* head, uint16_t* delta) {
+  for (int t0 = first; t0 <= last; t0 += LZ4T_LANES) {
+#if defined(__CUDA_ARCH__)
+    const int i = threadIdx.x & 31;
+    const int p = t0 + i;
+    const uint32_t key = lz4t_build_key(c, p, last, i, hash_log);
+    const uint32_t peers = __match_any_sync(0xFFFFFFFFu, key);
+    const int prev = lz4t_build_prev(t0, i, peers, head, key);
+    __syncwarp();  // every lane reads the head before any lane writes it
+    if (p <= last) {
+      if ((peers >> i) == 1) head[key] = (uint32_t)(p + 1);
+      delta[p] = lz4t_build_delta(p, prev);
+    }
+    __syncwarp();
+#else
+    uint32_t key[LZ4T_LANES], peers[LZ4T_LANES];
+    int prev[LZ4T_LANES];
+    for (int i = 0; i < LZ4T_LANES; i++)
+      key[i] = lz4t_build_key(c, t0 + i, last, i, hash_log);
+    for (int i = 0; i < LZ4T_LANES; i++) {
+      peers[i] = 0;
+      for (int j = 0; j < LZ4T_LANES; j++)
+        peers[i] |= (uint32_t)(key[j] == key[i]) << j;
+      prev[i] = lz4t_build_prev(t0, i, peers[i], head, key[i]);
+    }
+    for (int i = 0; i < LZ4T_LANES && t0 + i <= last; i++) {
+      if ((peers[i] >> i) == 1) head[key[i]] = (uint32_t)(t0 + i + 1);
+      delta[t0 + i] = lz4t_build_delta(t0 + i, prev[i]);
+    }
+#endif
+  }
+}
+
+// The chain as the walks read it (see the file comment).
+struct lz4t_ring {
+  const uint16_t* slot;   // LZ4T_DEEP_RING slots (shared memory)
+  const uint16_t* delta;  // the row's deltas (device memory)
+  int loaded;             // the slots hold positions below it
+};
+
+// the candidate q links to, or -1 at the chain's end
+LZ4T_HD int lz4t_ring_link(const lz4t_ring& r, int q) {
+  const int d = q + LZ4T_DEEP_RING < r.loaded
+                    ? r.delta[q]
+                    : r.slot[q & (LZ4T_DEEP_RING - 1)];
+  return d ? q - d : -1;
+}
+
+// the serial loop's l: bytes of c[a..) equal to c[p..) while p + l <
+// matchlimit, 32 compared per step
+LZ4T_HD int lz4t_common_lanes(const uint8_t* c, int a, int p,
+                              int matchlimit) {
+  for (int s = 0;; s += LZ4T_LANES) {
+    const uint32_t m = lz4t_ballot([&](int i) {
+      const int k = s + i;
+      return p + k >= matchlimit || c[a + k] != c[p + k];
+    });
+    if (m) return s + lz4t_ffs(m);
+  }
+}
+
+// Walk p's chain for a match longer than min_len that ends before
+// matchlimit. Returns the best length (min_len when none was found) and
+// sets *best_pos (-1 when none).
 LZ4T_HD int lz4t_deep_walk(const uint8_t* c, int p, int min_len, int first,
-                           int matchlimit, int tries, const uint32_t* chain,
+                           int matchlimit, int tries, const lz4t_ring& r,
                            int* best_pos) {
   const int lo = lz4t_max(first, p - LZ4T_MAX_DISTANCE);
-  int cand = (int)chain[p] - 1, bl = min_len, bp = -1;
+  int cand = lz4t_ring_link(r, p), bl = min_len, bp = -1;
   for (int t = 0; cand >= lo && t < tries; t++) {
     if (c[cand + bl] == c[p + bl]) {
-      int l = 0;
-      while (p + l < matchlimit && c[cand + l] == c[p + l]) l++;
+      const int l = lz4t_common_lanes(c, cand, p, matchlimit);
       if (l > bl) {
         bl = l;
         bp = cand;
       }
     }
-    cand = (int)chain[cand] - 1;
+    cand = lz4t_ring_link(r, cand);
   }
   *best_pos = bp;
   return bl;
 }
 
+// the serial loop's l, capped at lim: four byte pairs per step
+LZ4T_HD int lz4t_common_capped(const uint8_t* c, int a, int p, int lim) {
+  for (int l = 0; l < lim; l += 4) {
+    const uint32_t x = lz4t_rd32(c, a + l) ^ lz4t_rd32(c, p + l);
+    if (x) return lz4t_min(l + (lz4t_ffs(x) >> 3), lim);
+  }
+  return lim;
+}
+
+// Walk-table entry of p <= mflimit (one thread's part of the table; see
+// the file comment): (L << 16) | (p - candidate) for the best length L >
+// 3, capped at LZ4T_DEEP_LCAP, and the first candidate that reaches it;
+// 0 when no candidate has 4 bytes.
+LZ4T_HD uint32_t lz4t_walk_entry(const uint8_t* c, int p, int first,
+                                 int matchlimit, int tries,
+                                 const lz4t_ring& r) {
+  const int lo = lz4t_max(first, p - LZ4T_MAX_DISTANCE);
+  const int lim = lz4t_min(LZ4T_DEEP_LCAP, matchlimit - p);
+  int cand = lz4t_ring_link(r, p), bl = LZ4T_DEEP_MIN_MATCH - 1, bp = -1;
+  for (int t = 0; cand >= lo && t < tries && bl < lim; t++) {
+    const int l = lz4t_common_capped(c, cand, p, lim);
+    if (l > bl) {
+      bl = l;
+      bp = cand;
+    }
+    cand = lz4t_ring_link(r, cand);
+  }
+  return bp < 0 ? 0u : (uint32_t)bl << 16 | (uint32_t)(p - bp);
+}
+
+// walk(p, min_len) from p's table entry e, walking again where e's length
+// reached the cap
+LZ4T_HD int lz4t_deep_take(const uint8_t* c, int p, uint32_t e, int min_len,
+                           int first, int matchlimit, int tries,
+                           const lz4t_ring& r, int* best_pos) {
+  if ((int)(e >> 16) >= LZ4T_DEEP_LCAP)
+    return lz4t_deep_walk(c, p, min_len, first, matchlimit, tries, r,
+                          best_pos);
+  *best_pos = p - (int)(e & 0xFFFF);
+  return (int)(e >> 16);
+}
+
+// The walk-table entries of positions [from, to], thread t of nt.
+LZ4T_HD void lz4t_walk_table(const uint8_t* c, int base, int from, int to,
+                             int first, int matchlimit, int tries,
+                             const lz4t_ring& r, uint32_t* tab, int t,
+                             int nt) {
+  for (int p = from + t; p <= to; p += nt)
+    tab[p - base] = lz4t_walk_entry(c, p, first, matchlimit, tries, r);
+}
+
+// lz4t_emit_sequence with the literals copied 32 bytes per step
+LZ4T_HD int lz4t_emit_sequence_lanes(const uint8_t* c, uint8_t* o, int OT,
+                                     int op, int anchor, int ip, int mpos,
+                                     int mlen) {
+  const int lit = ip - anchor;
+  if (op + lit + (lit >> 8) + (mlen >> 8) + 32 > OT) return OT;
+  const int tok = op;
+  int q = op + 1;
+  if (lit >= 15) q = lz4t_emit_len_ext(o, q, lit - 15);
+  for (int s = 0; s < lit; s += LZ4T_LANES)
+    lz4t_lanes([&](int i) {
+      if (s + i < lit) o[q + s + i] = c[anchor + s + i];
+    });
+  q += lit;
+  if (mlen > 0) {
+    const int off = ip - mpos;
+    o[q] = (uint8_t)(off & 255);
+    o[q + 1] = (uint8_t)(off >> 8);
+    q += 2;
+    const int mv = mlen - 4;
+    if (mv >= 15) q = lz4t_emit_len_ext(o, q, mv - 15);
+    o[tok] = (uint8_t)((lz4t_min(lit, 15) << 4) | lz4t_min(mv, 15));
+    return q;
+  }
+  o[tok] = (uint8_t)(lz4t_min(lit, 15) << 4);
+  return q;
+}
+
 // c: the row, base + N + 8 bytes (n block bytes at base, zero after the
-// block's N); o: OT = CAP output bytes; head: 2^hash_log entries, zeroed by
-// the caller; chain: one entry per row byte (unzeroed). The window preload
-// runs here.
+// block's N); o: OT = CAP output bytes; r: the row's chain; tab: the walk
+// table, tab[p - base] for p in [base, base + n - 12]. Run by all 32 lanes
+// of a warp together.
 LZ4T_HD void lz4t_encode_deep_row(const uint8_t* c, int base, int first,
                                   int n, uint8_t* o, int OT, int tries,
-                                  int hash_log, uint32_t* head,
-                                  uint32_t* chain, int* total_out,
-                                  int* ok_out) {
+                                  const lz4t_ring& r, const uint32_t* tab,
+                                  int* total_out, int* ok_out) {
   const int end = base + n;
   const int mflimit = end - 12;
   const int matchlimit = end - 5;
   const int out_limit = OT - 16;
-  for (int p = first; p < base; p++)
-    lz4t_deep_insert(c, p, hash_log, head, chain);
   int ip = base, anchor = base, op = 0;
   int overflow = n < 0;
   while (ip <= mflimit && !overflow) {
-    int sip = ip, found = 0, bl = 0, bp = -1;
-    while (!found && sip <= mflimit) {
-      lz4t_deep_insert(c, sip, hash_log, head, chain);
-      bl = lz4t_deep_walk(c, sip, LZ4T_DEEP_MIN_MATCH - 1, first, matchlimit,
-                          tries, chain, &bp);
-      found = bl >= LZ4T_DEEP_MIN_MATCH;
-      if (!found) sip++;
+    // scan: the first position from ip with a match, 32 per step
+    int sip = ip;
+    uint32_t hit = 0;
+    while (sip <= mflimit) {
+      hit = lz4t_ballot([&](int i) {
+        return sip + i <= mflimit && tab[sip + i - base] != 0;
+      });
+      if (hit) break;
+      sip += LZ4T_LANES;
     }
-    if (!found) {
+    if (!hit) {
       ip = sip;
       continue;
     }
+    int mip = sip + lz4t_ffs(hit), mpos;
+    int mlen = lz4t_deep_take(c, mip, tab[mip - base],
+                              LZ4T_DEEP_MIN_MATCH - 1, first, matchlimit,
+                              tries, r, &mpos);
     // lazy: absorb a byte into the literals while the next position holds
     // a strictly longer match
-    int mip = sip, mlen = bl, mpos = bp, hi = sip + 1;
     while (mip + 1 <= mflimit && mlen < LZ4T_DEEP_LAZY_CAP) {
-      const int p2 = mip + 1;
-      lz4t_deep_insert(c, p2, hash_log, head, chain);
-      int q2;
-      const int l2 = lz4t_deep_walk(c, p2, mlen, first, matchlimit, tries,
-                                    chain, &q2);
-      hi = p2 + 1;
-      if (l2 <= mlen) break;
-      mip = p2;
-      mlen = l2;
-      mpos = q2;
+      const uint32_t e = tab[mip + 1 - base];
+      if ((int)(e >> 16) <= mlen) break;
+      mip++;
+      mlen = lz4t_deep_take(c, mip, e, mlen, first, matchlimit, tries, r,
+                            &mpos);
     }
     while (mip > anchor && mpos > first && c[mip - 1] == c[mpos - 1]) {
       mip--;
       mpos--;
       mlen++;
     }
-    const int op2 = lz4t_emit_sequence(c, o, OT, op, anchor, mip, mpos, mlen);
+    const int op2 =
+        lz4t_emit_sequence_lanes(c, o, OT, op, anchor, mip, mpos, mlen);
     const int nip = mip + mlen;
-    const int ins_lim = lz4t_min(nip, mflimit + 1);
-    for (int p = hi; p < ins_lim; p++)
-      lz4t_deep_insert(c, p, hash_log, head, chain);
     ip = nip;
     anchor = nip;
     op = op2;
@@ -131,7 +332,7 @@ LZ4T_HD void lz4t_encode_deep_row(const uint8_t* c, int base, int first,
   if (overflow || op + rest + rest / 255 + 16 > OT)
     op = OT;
   else
-    op = lz4t_emit_sequence(c, o, OT, op, anchor, end, 0, 0);
+    op = lz4t_emit_sequence_lanes(c, o, OT, op, anchor, end, 0, 0);
   *total_out = op;
   *ok_out = (op < n) && !overflow;
 }

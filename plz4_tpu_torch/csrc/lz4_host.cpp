@@ -1,8 +1,10 @@
 // Host build of the CUDA kernels' row bodies (lz4_encode.cuh,
 // lz4_encode_mid.cuh, lz4_encode_deep.cuh, lz4_decode.cuh,
-// lz4_decode_window.cuh, lz4_decode_wide.cuh, xxh32.cuh), compiled with g++ so that the CPU
-// tests can run the kernels' own logic on machines without a GPU. Same
-// layouts and results as the kernels' launchers.
+// lz4_decode_window.cuh, lz4_decode_wide.cuh, xxh32.cuh), compiled with g++
+// so that the CPU tests can run the kernels' own logic on machines without
+// a GPU. Same layouts and results as the kernels' launchers. The bodies
+// that one warp runs together (K4, K5) run their lanes' steps as loops
+// over lanes 0-31 here (lz4_lanes.cuh).
 #include <string.h>
 
 #include <vector>
@@ -103,6 +105,20 @@ extern "C" void lz4t_host_encode_mid(const uint8_t* data, const int32_t* lens,
   }
 }
 
+// K4's chain build (lz4t_deep_build) of row r into delta (Dc + N + 8
+// entries); returns the row's first usable position.
+static int deep_chain_row(std::vector<uint8_t>& row,
+                          std::vector<uint32_t>& head, uint16_t* delta,
+                          const uint8_t* data, const int32_t* lens,
+                          const uint8_t* win, const int32_t* wlens, int r,
+                          int N, int D, int K, int Dc, int hash_log) {
+  memset(head.data(), 0, head.size() * 4);
+  const int first = stage_window_row(row, data, win, wlens, r, N, D, K, Dc);
+  lz4t_deep_build(row.data(), first, Dc + lens[r] - 12, hash_log,
+                  head.data(), delta);
+  return first;
+}
+
 // K4: lz4_encode_deep.cu. Each row's window is the last Dc of its D bytes
 // (D = Dc = 0 for plain rows).
 extern "C" void lz4t_host_encode_deep(const uint8_t* data,
@@ -112,18 +128,46 @@ extern "C" void lz4t_host_encode_deep(const uint8_t* data,
                                       int32_t* totals, uint8_t* ok, int R,
                                       int N, int D, int K, int Dc, int CAP,
                                       int tries, int hash_log) {
-  std::vector<uint32_t> head(1 << hash_log), chain(Dc + N + 8);
+  const int DT = Dc + N + 8;
+  std::vector<uint32_t> head(1 << hash_log), tab(N);
+  std::vector<uint16_t> ring(LZ4T_DEEP_RING), delta(DT);
   std::vector<uint8_t> row;
   for (int r = 0; r < R; r++) {
-    memset(head.data(), 0, head.size() * 4);
-    const int first = stage_window_row(row, data, win, wlens, r, N, D, K, Dc);
+    const int first = deep_chain_row(row, head, delta.data(), data, lens, win,
+                                     wlens, r, N, D, K, Dc, hash_log);
+    const int mflimit = Dc + lens[r] - 12, matchlimit = Dc + lens[r] - 5;
+    for (int q = 0; q < LZ4T_DEEP_RING && q < DT; q++) ring[q] = delta[q];
+    lz4t_ring rg = {ring.data(), delta.data(), LZ4T_DEEP_RING};
+    lz4t_walk_table(row.data(), Dc, Dc,
+                    lz4t_min(mflimit, LZ4T_DEEP_RING - 1), first, matchlimit,
+                    tries, rg, tab.data(), 0, 1);
+    if (mflimit >= LZ4T_DEEP_RING) {
+      for (int q = LZ4T_DEEP_RING; q < DT; q++)
+        ring[q & (LZ4T_DEEP_RING - 1)] = delta[q];
+      rg.loaded = DT;
+      lz4t_walk_table(row.data(), Dc, LZ4T_DEEP_RING, mflimit, first,
+                      matchlimit, tries, rg, tab.data(), 0, 1);
+    }
     int total, okv;
     lz4t_encode_deep_row(row.data(), Dc, first, lens[r],
-                         out + (size_t)r * CAP, CAP, tries, hash_log,
-                         head.data(), chain.data(), &total, &okv);
+                         out + (size_t)r * CAP, CAP, tries, rg, tab.data(),
+                         &total, &okv);
     totals[r] = total;
     ok[r] = okv != 0;
   }
+}
+
+// K4's chain alone: delta (R, Dc + N + 8) u16, zeroed by the caller, gets
+// the deltas of every row's positions [first, mflimit].
+extern "C" void lz4t_host_deep_chain(const uint8_t* data, const int32_t* lens,
+                                     const uint8_t* win, const int32_t* wlens,
+                                     uint16_t* delta, int R, int N, int D,
+                                     int K, int Dc, int hash_log) {
+  std::vector<uint32_t> head(1 << hash_log);
+  std::vector<uint8_t> row;
+  for (int r = 0; r < R; r++)
+    deep_chain_row(row, head, delta + (size_t)r * (Dc + N + 8), data, lens,
+                   win, wlens, r, N, D, K, Dc, hash_log);
 }
 
 // K1: lz4_decode.cu
@@ -148,13 +192,20 @@ extern "C" void lz4t_host_decode_dict(const uint8_t* comp,
   for (int b = 0; b < B; b++) {
     const int32_t meta[7] = {clens[b], dlen, 0, 0, 0, 0, out_cap};
     int n, okv;
-    lz4t_decode_window_row<true>(comp + (size_t)b * C, C, meta, dict, D,
-                                 out + (size_t)b * out_cap, out_cap, &n,
-                                 &okv);
+    lz4t_decode_window_row(comp + (size_t)b * C, C, meta, dict, D,
+                           out + (size_t)b * out_cap, out_cap, &n, &okv);
     n_out[b] = n;
     ok[b] = okv != 0;
   }
 }
+
+// K5's parsed sequences, as the parse kernel stores them
+struct host_seqs {
+  std::vector<int32_t> v;
+  void operator()(int ip, int n_lit, int off, int m) {
+    v.insert(v.end(), {ip, n_lit, off, m});
+  }
+};
 
 // K5: lz4_decode_window.cu, lz4t_launch_records
 extern "C" void lz4t_host_decode_records(const uint8_t* rows,
@@ -169,8 +220,11 @@ extern "C" void lz4t_host_decode_records(const uint8_t* rows,
       uint8_t* o = outs + rec * W;
       memset(o, 0, W);
       int n, okv;
-      lz4t_decode_window_row<false>(rows + rec * CIN, CIN, metas + rec * 7,
-                                    win, W, o, W, &n, &okv);
+      host_seqs seqs;
+      lz4t_decode_record(rows + rec * CIN, CIN, metas + rec * 7, W, seqs, &n,
+                         &okv);
+      lz4t_copy_record_lanes(rows + rec * CIN, CIN, o, win, W, seqs.v.data(),
+                             (int)seqs.v.size() / 4, 0);
       n_outs[rec] = n;
       oks[rec] = okv != 0;
       win = o;

@@ -201,9 +201,14 @@ def decode_records_batch(rows: torch.Tensor, metas: torch.Tensor,
     n_outs = torch.empty((B, K), dtype=torch.int32, device=rows.device)
     oks = torch.empty((B, K), dtype=torch.bool, device=rows.device)
     if B and K:
+        # K5's scratch: each record's parsed sequences (at most W / 4 + 2)
+        seqs = torch.empty((B, K, W // 4 + 2, 4), dtype=torch.int32,
+                           device=rows.device)
+        n_seqs = torch.empty((B, K), dtype=torch.int32, device=rows.device)
         _launch("lz4t_launch_records",
                 (rows.data_ptr(), metas.data_ptr(), win0s.data_ptr(),
-                 outs.data_ptr(), n_outs.data_ptr(), oks.data_ptr()),
+                 outs.data_ptr(), n_outs.data_ptr(), oks.data_ptr(),
+                 seqs.data_ptr(), n_seqs.data_ptr()),
                 (B, K, CIN, W), rows.device)
         record_launches += 1
     return outs, n_outs, oks

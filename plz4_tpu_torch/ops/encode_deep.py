@@ -68,9 +68,11 @@ def _launch(data, lens, windows, wlens, D: int, chunks: int, tries: int,
     out, totals, ok = empty_outputs(R, N, data.device)
     if not R:
         return out, totals, ok
-    # one u32 link per row position; written before it is read
-    chain = torch.empty((R, Dc + N + 8), dtype=torch.int32,
+    # K4's scratch, written before it is read: each row's chain (one u16
+    # delta per row position) and walk table (one u32 per block position)
+    delta = torch.empty((R, Dc + N + 8), dtype=torch.int16,
                         device=data.device)
+    tab = torch.empty((R, N), dtype=torch.int32, device=data.device)
     win_ptr = wl_ptr = 0
     if Dc:
         windows, wlens = windows.contiguous(), wlens.contiguous()
@@ -80,7 +82,7 @@ def _launch(data, lens, windows, wlens, D: int, chunks: int, tries: int,
         _build.launch("lz4_encode_deep",
                       (data.data_ptr(), lens.data_ptr(), win_ptr, wl_ptr,
                        out.data_ptr(), totals.data_ptr(), ok.data_ptr(),
-                       chain.data_ptr()),
+                       delta.data_ptr(), tab.data_ptr()),
                       (R, N, D, chunks, Dc, out.shape[1], tries, hash_log),
                       stream)
     return out, totals, ok

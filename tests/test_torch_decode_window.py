@@ -607,3 +607,76 @@ def test_k5_record_ending_on_a_full_match(name, impl, request):
     _, _, k6c_ok = _k6c_record(jnp.asarray(rows[k]), jnp.asarray(metas[k]),
                                jnp.asarray(outs[0, k - 1] if k else win0))
     assert not int(k6c_ok)
+
+
+# ---------------------------------------------------------------------------
+# K5's lane copies (csrc/lz4_decode_window.cuh): short offsets, at and near
+# a record's start, against the plain version's byte-serial copies
+# ---------------------------------------------------------------------------
+
+SHORT_OFFS = range(1, 65)
+SHORT_MLS = (4, 5, 15, 18, 19, 31, 32, 33, 63, 64, 65, 100, 130)
+SHORT_OPS = (0, 1, 7, 31, 32, 40)  # output position where the match starts
+
+
+def _short_match_record(op: int, off: int, ml: int, carried: bool):
+    """One record: op literals then a match (off, ml) and one literal, or
+    (carried) the same match as the record's carried prologue match."""
+    lits = bytes((37 * k + 11) & 255 for k in range(op))
+    if carried:
+        comp = lits + b"\x10z"
+        meta = [len(comp), CH, op, 0, off, ml, op + ml + 1]
+    else:
+        mv = ml - 4
+        comp = bytes([(min(op, 15) << 4) | min(mv, 15)])
+        if op >= 15:
+            comp += bytes([op - 15])
+        comp += lits + bytes([off & 255, off >> 8])
+        if mv >= 15:
+            comp += b"\xff" * ((mv - 15) // 255) + bytes([(mv - 15) % 255])
+        comp += b"\x10z"
+        meta = [len(comp), CH, 0, 0, 0, 0, op + ml + 1]
+    return comp, meta
+
+
+@functools.lru_cache(maxsize=None)
+def _short_batch(off: int):
+    """Every (op, ml, carried) record of one offset as a 2-record block
+    against a random window: record 1 repeats record 0's stream, so its
+    window-sourced bytes come from record 0's output buffer."""
+    cases = [(op, ml, carried) for op in SHORT_OPS for ml in SHORT_MLS
+             for carried in (False, True)]
+    rng = np.random.default_rng(off)
+    rows = np.zeros((len(cases), 2, CIN), np.uint8)
+    metas = np.zeros((len(cases), 2, 7), np.int32)
+    win0s = rng.integers(0, 256, (len(cases), CH), dtype=np.uint8)
+    for b, (op, ml, carried) in enumerate(cases):
+        comp, meta = _short_match_record(op, off, ml, carried)
+        for k in range(2):
+            rows[b, k, :len(comp)] = np.frombuffer(comp, np.uint8)
+            metas[b, k] = meta
+    args = (rows, metas, win0s)
+    return args, tuple(t.numpy() for t in decode.decode_records_batch(
+        *(torch.from_numpy(a) for a in args)))
+
+
+@pytest.mark.parametrize("off", SHORT_OFFS)
+def test_k5_lane_copies_follow_plain_on_short_offsets(off, host_lib):
+    """Offsets 1-64 and match lengths 4-130 starting at output positions
+    0-40, in-record and as the carried match: steps that read the window,
+    steps that repeat a period shorter than a step, and steps that read
+    the step before."""
+    args, (po, pn, pk) = _short_batch(off)
+    go, gn, gk = _rec_port("g++", host_lib, *args)
+    assert pk.all() and (gk != 0).all()
+    assert (gn == pn).all()
+    assert go.tobytes() == po.tobytes()
+    # the match's bytes by the LZ4 rule, against the window for record 0
+    _, metas, win0s = args
+    ops = [op for op in SHORT_OPS for _ in SHORT_MLS for _ in (0, 1)]
+    mls = [ml for _ in SHORT_OPS for ml in SHORT_MLS for _ in (0, 1)]
+    for b, (op, ml) in enumerate(zip(ops, mls)):
+        o = bytearray(win0s[b].tobytes()) + bytearray(po[b, 0, :op].tobytes())
+        for _ in range(ml):
+            o.append(o[-off])
+        assert po[b, 0, :op + ml].tobytes() == bytes(o[CH:]), (op, ml)

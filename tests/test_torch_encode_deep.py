@@ -9,16 +9,17 @@ same stream bytes [0, total) where ok holds, at walk budgets 2, 8, 16 and
 small windows take the i32 chain with 2^15 heads; the batch layer's 64 KiB
 windows (dictionaries, linked blocks, large-block chunk rows) take the
 u16-delta chain with 2^14 heads and the window cut to 32 KiB, and a 16 KiB
-window takes 2^14 heads without the cut. The port runs one u32 chain for
-both. The plain version and the CUDA kernel's row body built with g++ are
-each held to the Pallas kernel; tests/test_torch_gpu.py holds the CUDA
-kernel to the plain version.
+window takes 2^14 heads without the cut. The port runs one u16-delta
+chain, built before the parse, for both. The plain version and the CUDA
+kernel's row body built with g++ are each held to the Pallas kernel;
+tests/test_torch_gpu.py holds the CUDA kernel to the plain version.
 """
 
 import functools
 import os
 import random
 import shutil
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -413,3 +414,182 @@ def test_level_ladder_sizes_strictly_improve():
     tots = [int(tot[0]) for _, tot, _ in sizes]
     assert tots[0] > tots[1] > tots[2] > tots[3], tots
     assert tots[3] >= tots[4] >= tots[5] >= tots[6], tots
+
+
+# ---------------------------------------------------------------------------
+# K4's prebuilt chain and its ring (csrc/lz4_encode_deep.cuh)
+# ---------------------------------------------------------------------------
+
+MAX_DELTA = 65535  # a longer link is stored as 0, which ends the chain
+WINDOW_CUT = encode_deep.WINDOW_CUT
+
+def _plain_chain(row: bytes, n: int, N: int, window: bytes, wlen: int,
+                 tries: int, hash_log: int):
+    """The chain that the plain version's insert-as-you-go parse leaves,
+    as K4's u16 deltas over [first, mflimit], read from its frame when it
+    returns."""
+    got = {}
+    code = encode_deep.encode_row_deep_plain.__code__
+
+    def prof(frame, event, arg):
+        if event == "return" and frame.f_code is code:
+            got.update((k, frame.f_locals[k])
+                       for k in ("chain", "first", "mflimit"))
+
+    sys.setprofile(prof)
+    try:
+        encode_deep.encode_row_deep_plain(row, n, N, window, wlen, tries,
+                                          hash_log)
+    finally:
+        sys.setprofile(None)
+    first, mflimit, chain = got["first"], got["mflimit"], got["chain"]
+    out = np.zeros(len(window) + N + 8, np.uint16)
+    for p in range(first, mflimit + 1):
+        d = p - (chain[p] - 1)
+        out[p] = d if chain[p] and d <= MAX_DELTA else 0
+    return out
+
+
+def _host_chain(lib, rows, lens, wins, wlens, chunks=1):
+    """lz4t_deep_build's deltas, routed as the wrapper routes the rows."""
+    R, width = rows.shape
+    Dw = None if wins is None else wins.shape[1]
+    hash_log, Dc = encode_deep.deep_route(width, Dw)
+    out = np.zeros((R, Dc + width + 8), np.uint16)
+    lib.lz4t_host_deep_chain(
+        rows.ctypes.data, lens.ctypes.data,
+        0 if wins is None else wins.ctypes.data,
+        0 if wlens is None else wlens.ctypes.data, out.ctypes.data, R, width,
+        Dw or 0, chunks, Dc, hash_log)
+    return out, hash_log, Dc
+
+
+def _chain_batches():
+    """name -> (args, chunks): the module's cached batches."""
+    out = {"small": (_plain("small", 2)[0] + (None, None), 1),
+           "full": (_plain("full", 2)[0] + (None, None), 1),
+           "windows": (_windows(tuple(WINDOW_CASES), D, 2)[0], 1),
+           "chunks": (_chunks()[0], K)}
+    return out
+
+
+def _chain_params():
+    return [pytest.param(name, r, id=f"{name}-{r}")
+            for name, n in (("small", len(SHAPES)), ("full", len(FULL)),
+                            ("windows", len(WINDOW_CASES)), ("chunks", 2 * K))
+            for r in range(n)]
+
+
+@pytest.mark.parametrize("name,r", _chain_params())
+def test_prebuilt_chain_is_the_insert_as_you_go_chain(name, r, host_lib):
+    (rows, lens, wins, wlens), chunks = _chain_batches()[name]
+    got, hash_log, Dc = _host_chain(host_lib, rows, lens, wins, wlens,
+                                    chunks)
+    N = rows.shape[1]
+    window = b""
+    if wins is not None:
+        D_ = wins.shape[1]
+        src = wins[r // chunks] if r % chunks == 0 else rows[r - 1]
+        window = src[D_ - Dc:].tobytes()
+    want = _plain_chain(rows[r].tobytes(), int(lens[r]), N, window,
+                        int(wlens[r]) if wlens is not None else 0, 2,
+                        hash_log)
+    assert got[r].tobytes() == want.tobytes()
+
+
+def _ring_rows():
+    """Rows of a 64 KiB block after a 32 KiB window (row positions 0 ..
+    98,311, the ring's slots reused past 65,536) of random bytes with
+    16-byte repeats at distances around the match window's edge: the
+    second copy at or past row position 65,536, the first copy's slot
+    reused when the parse loads slots ahead of its position."""
+    rng = np.random.default_rng(0x2196)
+    rows, wins = [], []
+    dists = (65504, 65505, 65520, 65533, 65534, 65535, 65536, 65537)
+    for k in range(3):
+        row = bytearray(rng.integers(0, 256, WINDOW_CUT + N, dtype=np.uint8)
+                        .tobytes())
+        for j, d in enumerate(dists * 3):
+            q = 800 + 1000 * j + 37 * k
+            pat = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+            row[q:q + 16] = pat
+            row[q + d:q + d + 16] = pat
+            if j % 3 == 0:  # a longer chain: a third copy in between
+                row[q + d // 2:q + d // 2 + 16] = pat
+        if k == 2:  # runs across the boundary: long chains of one bucket
+            row[60000:72000] = b"\x07" * 12000
+        wins.append(b"\x00" * WINDOW_CUT + bytes(row[:WINDOW_CUT]))
+        rows.append(bytes(row[WINDOW_CUT:]))
+    return rows, wins
+
+
+RING_ROWS = _ring_rows()
+
+
+@functools.lru_cache(maxsize=None)
+def _ring(tries: int):
+    rows, lens = _rows(RING_ROWS[0], N)
+    wins, _ = _rows(RING_ROWS[1], D)
+    wlens = np.full(len(rows), D, np.int32)
+    args = (rows, lens, wins, wlens)
+    assert encode_deep.deep_route(N, D) == (14, WINDOW_CUT)
+    ref = _np(encode_pallas.encode_batch_pallas_deep_dict(
+        *(jnp.asarray(a) for a in args), interpret=True, tries=tries))
+    got = _np(encode_deep.encode_batch_deep_window(*_t(*args), tries))
+    return args, ref, got
+
+
+@pytest.mark.parametrize("tries", (2, 32))
+@pytest.mark.parametrize("r", range(3))
+def test_ring_reuse_across_65536_matches_pallas(r, tries, host_lib):
+    args, ref, got = _ring(tries)
+    _assert_same(ref, got, r)
+    _assert_same(ref, _host_encode(host_lib, *args, tries), r)
+    assert ref[2][r]
+    assert native.decompress(got[0][r, :got[1][r]].tobytes(), N,
+                             dict_=RING_ROWS[1][r][D - WINDOW_CUT:]) \
+        == RING_ROWS[0][r]
+
+
+@pytest.mark.parametrize("r", range(3))
+def test_ring_rows_chain_is_the_insert_as_you_go_chain(r, host_lib):
+    rows, lens = _rows(RING_ROWS[0], N)
+    wins, _ = _rows(RING_ROWS[1], D)
+    wlens = np.full(len(rows), D, np.int32)
+    got, hash_log, Dc = _host_chain(host_lib, rows, lens, wins, wlens)
+    want = _plain_chain(rows[r].tobytes(), int(lens[r]), N,
+                        wins[r, D - Dc:].tobytes(), D, 2, hash_log)
+    assert got[r].tobytes() == want.tobytes()
+
+
+def _offsets(stream: bytes) -> set:
+    """The match offsets of an LZ4 block stream."""
+    out, ip = set(), 0
+    while True:
+        tok = stream[ip]
+        ip += 1
+        lit = tok >> 4
+        if lit == 15:
+            while stream[ip] == 255:
+                lit += 255
+                ip += 1
+            lit += stream[ip]
+            ip += 1
+        ip += lit
+        if ip >= len(stream):
+            return out
+        out.add(stream[ip] | stream[ip + 1] << 8)
+        ip += 2
+        if tok & 15 == 15:
+            while stream[ip] == 255:
+                ip += 1
+            ip += 1
+
+
+def test_ring_rows_find_matches_at_the_window_edge():
+    """At tries 32 the walks reach the planted copies 65,504-65,535 bytes
+    back, whose links lie in slots the ring has reused."""
+    _, ref, got = _ring(32)
+    for r in range(3):
+        offs = _offsets(got[0][r, :got[1][r]].tobytes())
+        assert {65504, 65505, 65520, 65533, 65534, 65535} <= offs, r

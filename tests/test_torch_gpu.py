@@ -236,6 +236,76 @@ def test_decode_records_kernel_matches_plain(cuda):
     assert plain[2][0, :2].all() and plain[2][1, :3].all()
 
 
+def _short_offset_records():
+    """K5 records of one match each (offsets 1-64, lengths 4-130, starting
+    at output positions 0-40, in-record or carried), two per block so that
+    the second record's window is the first one's output."""
+    W, CIN = 1024, 1280
+    cases = [(op, off, ml, carried) for op in (0, 1, 7, 31, 32, 40)
+             for off in range(1, 65) for ml in (4, 19, 31, 33, 64, 130)
+             for carried in (False, True)]
+    rows = np.zeros((len(cases), 2, CIN), np.uint8)
+    metas = np.zeros((len(cases), 2, 7), np.int32)
+    win0s = np.random.default_rng(31).integers(0, 256, (len(cases), W),
+                                               dtype=np.uint8)
+    for b, (op, off, ml, carried) in enumerate(cases):
+        lits = bytes((37 * k + 11) & 255 for k in range(op))
+        if carried:
+            comp = lits + b"\x10z"
+            meta = [len(comp), W, op, 0, off, ml, op + ml + 1]
+        else:
+            mv = ml - 4
+            comp = bytes([(min(op, 15) << 4) | min(mv, 15)])
+            comp += bytes([op - 15]) if op >= 15 else b""
+            comp += lits + bytes([off, 0])
+            comp += bytes([mv - 15]) if mv >= 15 else b""
+            comp += b"\x10z"
+            meta = [len(comp), W, 0, 0, 0, 0, op + ml + 1]
+        rows[b, :, :len(comp)] = np.frombuffer(comp, np.uint8)
+        metas[b, :] = meta
+    return [torch.from_numpy(x) for x in (rows, metas, win0s)]
+
+
+@pytest.mark.gpu
+def test_decode_records_kernel_short_offsets_match_plain(cuda):
+    args = _short_offset_records()
+    kern = decode.decode_records_batch(*(x.to(cuda) for x in args))
+    plain = decode.decode_records_batch_plain(*args)
+    assert plain[2].all()
+    assert torch.equal(kern[1].cpu(), plain[1])
+    assert torch.equal(kern[2].cpu(), plain[2])
+    assert torch.equal(kern[0].cpu(), plain[0])  # zero past n_out too
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tries", [2, 32])
+def test_encode_deep_kernel_reuses_ring_slots_exactly(cuda, tries):
+    """64 KiB blocks after 32 KiB windows (row positions past 65,536) of
+    random bytes with repeats 65,504-65,537 bytes apart and a run."""
+    rng = np.random.default_rng(0x2196)
+    rows, wins = [], []
+    for k in range(3):
+        row = bytearray(rng.integers(0, 256, 3 * N // 2, dtype=np.uint8)
+                        .tobytes())
+        for j, d in enumerate((65504, 65505, 65520, 65534, 65535, 65536,
+                               65537) * 3):
+            q = 800 + 1000 * j + 37 * k
+            pat = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+            row[q:q + 16] = pat
+            row[q + d:q + d + 16] = pat
+        row[60000:72000] = b"\x07" * 12000  # a run across 65,536
+        rows.append(bytes(row[N // 2:]))
+        wins.append(bytes(N // 2) + bytes(row[:N // 2]))
+    d, ln = _rows(rows, N)
+    w, _ = _rows(wins, N)
+    wl = torch.full((3,), N, dtype=torch.int32)
+    kern = encode_deep.encode_batch_deep_window(
+        d.to(cuda), ln.to(cuda), w.to(cuda), wl.to(cuda), tries)
+    plain = encode_deep.encode_batch_deep_window_plain(d, ln, w, wl, tries)
+    assert plain[2].all()
+    _same_rows(kern, plain, plain[1])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("opts", [
     dict(),
