@@ -633,6 +633,24 @@ def main() -> int:
     chunk_what = f"{2 * CHUNKS} chunk rows of two 4 MiB blocks"
     window_what = ("rows with a full, a partial and an empty 64 KiB window "
                    "and a short block")
+    # rows aimed at the chain parse's warp steps: 8 KiB plain rows, and 64
+    # KiB rows after 64 KiB windows (depth 4 keeps two tables in device
+    # memory there), at preload strides 1 and 2
+    step_plain, step_far = corpus.chain_edge_rows()
+    step_host = tuple(torch.from_numpy(x) for x in
+                      rows_of(list(step_plain.values()), 8192))
+    fa, fn = rows_of([b for b, _, _ in step_far.values()], BLOCK)
+    fw, _ = rows_of([w for _, w, _ in step_far.values()], BLOCK)
+    far_host = (torch.from_numpy(fa), torch.from_numpy(fn),
+                torch.from_numpy(fw),
+                torch.tensor([u for _, _, u in step_far.values()],
+                             dtype=torch.int32))
+    # a 3.5-chunk block whose second chunk is random: that chunk does not
+    # shrink, yet the large-block path stitches its stream (literals)
+    text = corpus.silesia_like(3 * BLOCK, seed=6)
+    noise = np.random.default_rng(23).integers(0, 256, BLOCK, dtype=np.uint8)
+    rnd_block = text[:BLOCK] + noise.tobytes() + text[BLOCK:5 * BLOCK // 2]
+    rnd_host = chunk_batch([rnd_block], None)
     mid = {}  # depth4 -> (ms, plain ms, max err, plain totals, chunk ms)
     for depth4, name in ((False, "K2c"), (True, "K2d")):
         m_in, _, m_plain, m_plain_ms, m_err = both(
@@ -652,11 +670,43 @@ def main() -> int:
         errs.append(both(name, encode_mid.encode_batch_mid_window,
                          encode_mid.encode_batch_mid_window_plain, w_host,
                          window_what + " (wstride 1)", depth4=depth4)[4])
+        errs.append(both(name, encode_mid.encode_batch_mid,
+                         encode_mid.encode_batch_mid_plain, step_host,
+                         f"the {len(step_plain)} step edge rows",
+                         depth4=depth4)[4])
+        for ws in (1, 2):
+            errs.append(both(name, encode_mid.encode_batch_mid_window,
+                             encode_mid.encode_batch_mid_window_plain,
+                             far_host, f"copies 65,534-65,536 bytes back "
+                             f"from 64 KiB windows (wstride {ws})",
+                             depth4=depth4, wstride=ws)[4])
+        kw = dict(wstride=large.CHUNK_WSTRIDE, chunks=CHUNKS)
+        r_kern = encode_mid.encode_batch_mid_window(
+            *[x.to(dev) for x in rnd_host], depth4, **kw)
+        r_plain = encode_mid.encode_batch_mid_window_plain(*rnd_host, depth4,
+                                                           **kw)
+        r_tot = r_plain[1].numpy()
+        fits = r_tot < r_plain[0].shape[1]
+        check(bool((fits & ~r_plain[2].numpy()).any()),
+              "the random chunk does not shrink")
+        errs.append(max_err(r_kern, r_plain, np.where(fits, r_tot, 0)))
+        check(errs[-1] == 0, f"{name} stream bytes equal plain wherever "
+              f"total < CAP on a block with a random chunk (max abs err "
+              f"{errs[-1]})")
         ms = cuda_ms(lambda: encode_mid.encode_batch_mid(*m_in, depth4), 5)
         c_ms = cuda_ms(lambda: encode_mid.encode_batch_mid_window(
             *c_in, depth4, large.CHUNK_WSTRIDE, CHUNKS), 5)
         mid[depth4] = (ms, m_plain_ms, max(errs), m_plain[1].numpy(), c_ms)
         del m_in, c_in
+    for level in (3, 8):
+        f = plz4.compress(rnd_block, backend="device", level=level)
+        check(f == plz4.compress(rnd_block, backend="device", level=level,
+                                 device="cpu") and len(f) < len(rnd_block),
+              f"level {level}: a 4 MiB-block frame with a random chunk "
+              "equals the device=cpu frame")
+        check(plz4.decompress(f, backend="device") == rnd_block
+              and plz4.decompress(f, backend="native") == rnd_block,
+              f"level {level}: the frame with a random chunk round-trips")
     deep = {}  # tries -> (ms, plain ms, max err, plain totals, chunk ms)
     for tries in (2, 32):
         d_in, _, d_plain, d_plain_ms, d_err = both(
@@ -779,24 +829,29 @@ def main() -> int:
     ladder_launches = {}
     kb64 = dict(block_size_idx=plz4.BLOCK_IDX_64KB)
     n_batch32 = math.ceil(n_win / ROWS)
-    for name, o, key, want in (
+    # cell, options, the launch counter, its launches, the kernel and its ms
+    # per launch from phase 11 (None: no share printed)
+    for name, o, key, want, kern_ms in (
             ("level 3", dict(level=3) | kb64, "encode_mid.launches",
-             n_batch32),
+             n_batch32, ("K2c", mid[False][0])),
             ("level 8", dict(level=8) | kb64, "encode_mid.launches",
-             n_batch32),
+             n_batch32, ("K2d", mid[True][0])),
             ("level 12", dict(level=12) | kb64, "encode_deep.launches",
-             n_batch32),
+             n_batch32, None),
             ("level 8 at 4 MiB blocks", dict(level=8),
-             "encode_mid.window_launches", len(win_data) // BIG // 2),
+             "encode_mid.window_launches", len(win_data) // BIG // 2,
+             ("K2d", mid[True][4])),
             ("linked level 6", dict(level=6, block_linked=True) | kb64,
-             "encode_mid.window_launches", n_batch32),
+             "encode_mid.window_launches", n_batch32, None),
             ("dictionary level 9", dict(level=9, dictionary=dict64) | kb64,
-             "encode_deep.window_launches", n_batch32)):
+             "encode_deep.window_launches", n_batch32, None)):
         d = o.get("dictionary")
         reset()
+        torch.cuda.reset_peak_memory_stats()
         f, t_e = host_ms(lambda: plz4.compress(win_data, backend="device",
                                                **o))
         torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
         counts = read()
         back = plz4.decompress(f, backend="device", dictionary=d)
         torch.cuda.synchronize()
@@ -808,8 +863,14 @@ def main() -> int:
         check(plz4.decompress(f, backend="native", dictionary=d) == win_data,
               f"{name} device frame decodes with backend=native")
         ladder_launches[name] = counts[key]
+        share = ""
+        if kern_ms:
+            share = (f"; {kern_ms[0]} share of encode wall {counts[key]} x "
+                     f"{kern_ms[1]:.3f} ms = "
+                     f"{100 * counts[key] * kern_ms[1] / t_e:.1f}%")
         print(f"{name} [{smi}]: encode {len(win_data) / 1e6 / t_e:.3f} GB/s, "
-              f"frame ratio {len(win_data) / len(f):.4f}")
+              f"frame ratio {len(win_data) / len(f):.4f}, peak device memory "
+              f"{peak / 2**20:.1f} MiB{share}")
 
     # ---- 15. K7 against its plain version and native.xxh32 --------------
     def hash_both(host_args, seed, what, blocks):

@@ -185,3 +185,93 @@ def silesia_like(size: int, seed: int = 2003) -> bytes:
             out += rng.integers(0, 256, int(rng.integers(3000, 12000)),
                                 dtype=np.uint8).tobytes()
     return bytes(out[:size])
+
+
+def _mid_bucket(words: np.ndarray) -> np.ndarray:
+    """The chain encoders' 13-bit bucket of little-endian u32 words."""
+    return ((words.astype(np.uint64) * 2654435761 % (1 << 32))
+            >> 19).astype(np.int64)
+
+
+def chain_edge_rows(seed: int = 6) -> tuple[dict, dict]:
+    """Rows aimed at the steps of the chain encoders' warp-cooperative parse
+    (K2c, K2d), which scores 32 positions per step: (plain, windowed).
+
+    plain maps a name to a block of at most 8 KiB: runs of periods 1-4;
+    repeats of words that share one hash bucket, more than four of them
+    inside 32 positions; copies after 0-69 fresh bytes, so a step's first
+    match falls on every lane; matches that run to the block's end; and
+    blocks of 13-80 bytes, whose last scanned position falls inside a step.
+    windowed maps a name to (block of at most 4 KiB, 64 KiB window, usable
+    window bytes): copies from the window exactly 65,534, 65,535 and 65,536
+    bytes back, beside nearer copies of the same words."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n: int) -> bytes:
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    plain = {f"period{k}": (rand(k) * (8192 // k + 1))[:8192 - k + 1]
+             for k in (1, 2, 3, 4)}
+    mixed = bytearray(rand(64))
+    while len(mixed) < 8000:
+        k = int(rng.integers(1, 5))
+        mixed += rand(int(rng.integers(1, 40)))
+        mixed += (rand(k) * 40)[:int(rng.integers(5, 70))]
+    plain["period-runs"] = bytes(mixed)
+    # 16 distinct words of one bucket, in shuffled groups
+    cand = np.frombuffer(rand(4 << 16), np.uint32)
+    b = _mid_bucket(cand)
+    words = [w.tobytes() for w in cand[b == np.bincount(b).argmax()][:16]]
+    crowd = bytearray(rand(40))
+    for g in range(30):
+        for k in rng.permutation(len(words))[:int(rng.integers(6, 16))]:
+            crowd += words[k]
+        crowd += words[g % 4] + words[(g + 1) % 4] + words[g % 4]
+        crowd += rand(int(rng.integers(0, 10)))
+    plain["bucket-crowd"] = bytes(crowd)
+    # fresh words that share a bucket with a word near them, each used
+    # once: A B A (A and B distinct, one bucket) and W W where W's 2-byte
+    # rotation shares W's bucket, so that a position's candidate is its
+    # second-newest lower position in the step
+    cand = np.frombuffer(rand(4 << 21), np.uint32)
+    b = _mid_bucket(cand)
+    order = np.argsort(b, kind="stable")
+    same = np.flatnonzero(b[order][1:] == b[order][:-1])[::2][:48]
+    pairs = [(cand[order][k].tobytes(), cand[order][k + 1].tobytes())
+             for k in same]
+    rot = cand[_mid_bucket(cand) == _mid_bucket((cand << 16) | (cand >> 16))]
+    order_ = bytearray(rand(24))
+    for k, (a, b_) in enumerate(pairs):
+        order_ += rand(k % 11) + a + b_ + a + rand(5)
+    for k, wv in enumerate(rot[:48]):
+        order_ += rand(k % 9) + wv.tobytes() * 2 + rand(6)
+    plain["peer-order"] = bytes(order_)
+    src = rand(512)
+    hits = bytearray(src)
+    for k in [40] + list(range(70)):
+        a = int(rng.integers(0, len(src) - 16))
+        hits += rand(k) + src[a:a + 16]
+    plain["lane-hits"] = bytes(hits)
+    head = rand(600)
+    plain["to-matchlimit"] = head * 3
+    plain["to-matchlimit-odd"] = (head[:333] * 4)[:1001]
+    for n in (13, 14, 15, 16, 17, 19, 20, 23, 31, 32, 33, 44, 45, 63, 64,
+              65, 79, 80):
+        k = n % 4 + 1
+        body = (rand(k) * 80)[:n] if n % 3 else (rand(12) * 7)[:n]
+        plain[f"short{n}"] = body
+    window = bytearray(rand(65536))
+    block = bytearray(rand(4096))
+    for off, back in ((100, 65535), (300, 65536), (500, 65534), (701, 65535),
+                      (903, 65536)):
+        q = 65536 + off - back
+        block[off:off + 16] = window[q:q + 16]
+    # a word 65,536 back that is also nearer in the window
+    window[40000:40016] = window[1000:1016]
+    block[1000:1016] = window[1000:1016]
+    block[2000:2400] = window[64000:64400]
+    windowed = {"far": (bytes(block), bytes(window), 65536),
+                "far-first1": (bytes(block), bytes(window), 65535),
+                "far-repeats": ((rand(1000) * 5)[:4096],
+                                (rand(4096) * 16)[:65536], 65536)}
+    return plain, windowed

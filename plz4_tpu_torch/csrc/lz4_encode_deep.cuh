@@ -113,34 +113,23 @@ LZ4T_HD uint16_t lz4t_build_delta(int p, int prev) {
 LZ4T_HD void lz4t_deep_build(const uint8_t* c, int first, int last,
                              int hash_log, uint32_t* head, uint16_t* delta) {
   for (int t0 = first; t0 <= last; t0 += LZ4T_LANES) {
-#if defined(__CUDA_ARCH__)
-    const int i = threadIdx.x & 31;
-    const int p = t0 + i;
-    const uint32_t key = lz4t_build_key(c, p, last, i, hash_log);
-    const uint32_t peers = __match_any_sync(0xFFFFFFFFu, key);
-    const int prev = lz4t_build_prev(t0, i, peers, head, key);
-    __syncwarp();  // every lane reads the head before any lane writes it
-    if (p <= last) {
-      if ((peers >> i) == 1) head[key] = (uint32_t)(p + 1);
-      delta[p] = lz4t_build_delta(p, prev);
-    }
-    __syncwarp();
-#else
-    uint32_t key[LZ4T_LANES], peers[LZ4T_LANES];
-    int prev[LZ4T_LANES];
-    for (int i = 0; i < LZ4T_LANES; i++)
-      key[i] = lz4t_build_key(c, t0 + i, last, i, hash_log);
-    for (int i = 0; i < LZ4T_LANES; i++) {
-      peers[i] = 0;
-      for (int j = 0; j < LZ4T_LANES; j++)
-        peers[i] |= (uint32_t)(key[j] == key[i]) << j;
-      prev[i] = lz4t_build_prev(t0, i, peers[i], head, key[i]);
-    }
-    for (int i = 0; i < LZ4T_LANES && t0 + i <= last; i++) {
-      if ((peers[i] >> i) == 1) head[key[i]] = (uint32_t)(t0 + i + 1);
-      delta[t0 + i] = lz4t_build_delta(t0 + i, prev[i]);
-    }
-#endif
+    uint32_t key[LZ4T_NL], peers[LZ4T_NL];
+    int prev[LZ4T_NL];
+    lz4t_lanes_out([&](int i) {
+      key[lz4t_li(i)] = lz4t_build_key(c, t0 + i, last, i, hash_log);
+    });
+    lz4t_match_any(key, peers);
+    // every lane reads the head before any lane writes it
+    lz4t_lanes([&](int i) {
+      const int l = lz4t_li(i);
+      prev[l] = lz4t_build_prev(t0, i, peers[l], head, key[l]);
+    });
+    lz4t_lanes_store([&](int i) {
+      const int l = lz4t_li(i), p = t0 + i;
+      if (p > last) return;
+      if ((peers[l] >> i) == 1) head[key[l]] = (uint32_t)(p + 1);
+      delta[p] = lz4t_build_delta(p, prev[l]);
+    });
   }
 }
 

@@ -3,8 +3,8 @@
 // lz4_decode_window.cuh, lz4_decode_wide.cuh, xxh32.cuh), compiled with g++
 // so that the CPU tests can run the kernels' own logic on machines without
 // a GPU. Same layouts and results as the kernels' launchers. The bodies
-// that one warp runs together (K4, K5) run their lanes' steps as loops
-// over lanes 0-31 here (lz4_lanes.cuh).
+// that one warp runs together (K2c, K2d, K4, K5) run their lanes' steps as
+// loops over lanes 0-31 here (lz4_lanes.cuh).
 #include <string.h>
 
 #include <vector>
@@ -76,33 +76,77 @@ extern "C" void lz4t_host_encode_window(const uint8_t* data,
   }
 }
 
-// K2c (depth 2) and K2d (depth 4): lz4_encode_mid.cu. D = 0 is a plain row.
-extern "C" void lz4t_host_encode_mid(const uint8_t* data, const int32_t* lens,
-                                     const uint8_t* win, const int32_t* wlens,
-                                     uint8_t* out, int32_t* totals,
-                                     uint8_t* ok, int R, int N, int D, int K,
-                                     int wstride, int CAP, int depth4) {
+// K2c (depth 2) and K2d (depth 4): lz4_encode_mid.cu, the lanes' parse on
+// a u32 copy of the row with one word after it, then the emit of its
+// sequences wherever total < CAP; serial (depth 2 only) runs the serial
+// body (K6b's, with K2c's emit) instead. D = 0 is a plain row.
+template <int kDepth>
+static void encode_mid_row(const std::vector<uint8_t>& row,
+                           const std::vector<uint32_t>& w,
+                           std::vector<int>& seq, int D, int first, int n,
+                           int wstride, uint8_t* o, int CAP,
+                           const lz4t_mid_tabs& t, int serial, int* total,
+                           int* okv) {
+  const int DT = (int)row.size();
+  lz4t_mid_preload<kDepth>(row.data(), D, first, wstride, t);
+  if constexpr (kDepth == 2) {
+    if (serial) {
+      lz4t_encode_mid_row<2>(row.data(), DT, D, first, n, o, CAP, t, total,
+                             okv);
+      return;
+    }
+  }
+  const int k = lz4t_encode_mid_row_lanes<kDepth>(w.data(), DT, D, first, n,
+                                                  CAP, t, seq.data(), total,
+                                                  okv);
+  if (*total < CAP) lz4t_mid_emit(row.data(), o, CAP, D, seq.data(), k, 0, 1);
+}
+
+static void encode_mid(const uint8_t* data, const int32_t* lens,
+                       const uint8_t* win, const int32_t* wlens, uint8_t* out,
+                       int32_t* totals, uint8_t* ok, int R, int N, int D,
+                       int K, int wstride, int CAP, int depth4, int serial) {
   const int T = 1 << LZ4T_MID_HASH_LOG;
-  std::vector<uint32_t> tabs(4 * T);
+  const int DT = D + N + 8;
+  std::vector<uint32_t> tabs(4 * T), w(DT / 4 + 1);
+  std::vector<int> seq(4 * (N / 4 + 2));
   std::vector<uint8_t> row;
   const lz4t_mid_tabs t = {tabs.data(), tabs.data() + T, tabs.data() + 2 * T,
                            tabs.data() + 3 * T};
   for (int r = 0; r < R; r++) {
     memset(tabs.data(), 0, tabs.size() * 4);
     const int first = stage_window_row(row, data, win, wlens, r, N, D, K, D);
+    memcpy(w.data(), row.data(), DT);
     int total, okv;
-    if (depth4) {
-      lz4t_mid_preload<4>(row.data(), D, first, wstride, t);
-      lz4t_encode_mid_row<4>(row.data(), D + N + 8, D, first, lens[r],
-                             out + (size_t)r * CAP, CAP, t, &total, &okv);
-    } else {
-      lz4t_mid_preload<2>(row.data(), D, first, wstride, t);
-      lz4t_encode_mid_row<2>(row.data(), D + N + 8, D, first, lens[r],
-                             out + (size_t)r * CAP, CAP, t, &total, &okv);
-    }
+    uint8_t* o = out + (size_t)r * CAP;
+    if (depth4)
+      encode_mid_row<4>(row, w, seq, D, first, lens[r], wstride, o, CAP, t,
+                        0, &total, &okv);
+    else
+      encode_mid_row<2>(row, w, seq, D, first, lens[r], wstride, o, CAP, t,
+                        serial, &total, &okv);
     totals[r] = total;
     ok[r] = okv != 0;
   }
+}
+
+extern "C" void lz4t_host_encode_mid(const uint8_t* data, const int32_t* lens,
+                                     const uint8_t* win, const int32_t* wlens,
+                                     uint8_t* out, int32_t* totals,
+                                     uint8_t* ok, int R, int N, int D, int K,
+                                     int wstride, int CAP, int depth4) {
+  encode_mid(data, lens, win, wlens, out, totals, ok, R, N, D, K, wstride,
+             CAP, depth4, 0);
+}
+
+// The same rows at depth 2 through the serial body, for the test that
+// holds the two bodies to each other.
+extern "C" void lz4t_host_encode_mid_serial(
+    const uint8_t* data, const int32_t* lens, const uint8_t* win,
+    const int32_t* wlens, uint8_t* out, int32_t* totals, uint8_t* ok, int R,
+    int N, int D, int K, int wstride, int CAP) {
+  encode_mid(data, lens, win, wlens, out, totals, ok, R, N, D, K, wstride,
+             CAP, 0, 1);
 }
 
 // K4's chain build (lz4t_deep_build) of row r into delta (Dc + N + 8

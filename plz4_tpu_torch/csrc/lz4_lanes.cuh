@@ -1,5 +1,5 @@
 // Warp-cooperative steps of the row bodies that one warp runs together
-// (K4's parse and chain build, K5's record decode). All 32 lanes of the
+// (K2c/K2d's parse, K4's parse and chain build, K5's record decode). All 32 lanes of the
 // warp run the caller's scalar control flow in step, reading the same
 // shared-memory words as broadcasts, and split only the steps below among
 // themselves, lane i taking element i of each group of 32. The g++ build
@@ -45,6 +45,15 @@ LZ4T_HD int lz4t_fls(uint32_t m) {
 #endif
 }
 
+// number of set bits
+LZ4T_HD int lz4t_popc(uint32_t m) {
+#if defined(__CUDA_ARCH__)
+  return __popc(m);
+#else
+  return __builtin_popcount(m);
+#endif
+}
+
 // f(i) for every lane i, then the warp's writes are visible to all lanes
 template <class F>
 LZ4T_HD void lz4t_lanes(F f) {
@@ -53,6 +62,32 @@ LZ4T_HD void lz4t_lanes(F f) {
   __syncwarp();
 #else
   for (int i = 0; i < LZ4T_LANES; i++) f(i);
+#endif
+}
+
+// f(i) for every lane, for a step whose stores no lane reads: no
+// __syncwarp after it
+template <class F>
+LZ4T_HD void lz4t_lanes_out(F f) {
+#if defined(__CUDA_ARCH__)
+  f((int)(threadIdx.x & 31));
+#else
+  for (int i = 0; i < LZ4T_LANES; i++) f(i);
+#endif
+}
+
+// f(i) for every lane as lz4t_lanes, for a step whose lanes store to
+// shared addresses: on the card two lanes storing to one address in one
+// step leave either value, so the host build runs the lanes last first
+// and a body that lets a lower lane's store stand in for a higher one's
+// fails its tests
+template <class F>
+LZ4T_HD void lz4t_lanes_store(F f) {
+#if defined(__CUDA_ARCH__)
+  f((int)(threadIdx.x & 31));
+  __syncwarp();
+#else
+  for (int i = LZ4T_LANES - 1; i >= 0; i--) f(i);
 #endif
 }
 
@@ -95,6 +130,33 @@ LZ4T_HD int lz4t_lane_get(const int* v, int q) {
   return __shfl_sync(0xFFFFFFFFu, v[0], q);
 #else
   return v[q];
+#endif
+}
+
+// peers[lane] = the lanes whose key equals the lane's own, from the
+// per-lane array key (every lane calls it)
+LZ4T_HD void lz4t_match_any(const uint32_t* key, uint32_t* peers) {
+#if defined(__CUDA_ARCH__)
+  peers[0] = __match_any_sync(0xFFFFFFFFu, key[0]);
+#else
+  for (int i = 0; i < LZ4T_LANES; i++) {
+    peers[i] = 0;
+    for (int j = 0; j < LZ4T_LANES; j++)
+      peers[i] |= (uint32_t)(key[j] == key[i]) << j;
+  }
+#endif
+}
+
+// out[lane] = v[src(lane)] for every lane, from the per-lane arrays v and
+// out (a __shfl_sync; v and out may be one array)
+template <class F>
+LZ4T_HD void lz4t_gather(const int* v, int* out, F src) {
+#if defined(__CUDA_ARCH__)
+  out[0] = __shfl_sync(0xFFFFFFFFu, v[0], src((int)(threadIdx.x & 31)));
+#else
+  int t[LZ4T_LANES];
+  for (int i = 0; i < LZ4T_LANES; i++) t[i] = v[src(i)];
+  for (int i = 0; i < LZ4T_LANES; i++) out[i] = t[i];
 #endif
 }
 

@@ -29,7 +29,7 @@ KERNELS = {
     "lz4_encode": {"lz4t_launch": (5, 3)},            # K2a
     "lz4_decode": {"lz4t_launch": (5, 3)},            # K1
     "lz4_encode_window": {"lz4t_launch": (7, 6)},     # K2b
-    "lz4_encode_mid": {"lz4t_launch": (8, 7)},        # K2c, K2d
+    "lz4_encode_mid": {"lz4t_launch": (9, 7)},        # K2c, K2d
     "lz4_encode_deep": {"lz4t_launch": (9, 8)},       # K4
     "lz4_decode_window": {"lz4t_launch_dict": (6, 5),  # K3
                           "lz4t_launch_records": (8, 4)},  # K5 (and K6c)
@@ -43,6 +43,7 @@ HOST_FNS = {
     "lz4t_host_encode": (5, 3),
     "lz4t_host_encode_window": (7, 6),
     "lz4t_host_encode_mid": (7, 7),
+    "lz4t_host_encode_mid_serial": (7, 6),
     "lz4t_host_encode_deep": (7, 8),
     "lz4t_host_deep_chain": (5, 6),
     "lz4t_host_decode": (5, 3),

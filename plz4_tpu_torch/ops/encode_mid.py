@@ -10,7 +10,9 @@ encode_batch_pallas_mid_dict): the same ok and total per row, and the same
 stream bytes [0, total) where ok holds. Rows that the byte-wide budget
 refuses (encode.bw_fits) go to the packed-word kernel K6b in mid mode, which
 has depth 2 only: a level-8 row that wide is encoded at depth 2, as the
-Pallas wrappers encode it.
+Pallas wrappers encode it. The kernel parses each row with one warp and
+writes a row's stream wherever total < CAP, as the Pallas kernel does: the
+large-block path stitches the stream of a chunk that did not shrink.
 """
 
 from __future__ import annotations
@@ -47,6 +49,10 @@ def _launch(data, lens, windows, wlens, D: int, depth4: bool, wstride: int,
     if tables_spill(N, D, depth4):
         scratch = torch.empty((R, 2 << MID_HASH_LOG), dtype=torch.int32,
                               device=data.device)
+    # the parse's sequences, four ints each, at most N / 4 per row; the
+    # last record holds their count
+    seqs = torch.empty((R, N // 4 + 2, 4), dtype=torch.int32,
+                       device=data.device)
     win_ptr = wl_ptr = 0
     if D:
         windows, wlens = windows.contiguous(), wlens.contiguous()
@@ -56,7 +62,8 @@ def _launch(data, lens, windows, wlens, D: int, depth4: bool, wstride: int,
         _build.launch("lz4_encode_mid",
                       (data.data_ptr(), lens.data_ptr(), win_ptr, wl_ptr,
                        out.data_ptr(), totals.data_ptr(), ok.data_ptr(),
-                       0 if scratch is None else scratch.data_ptr()),
+                       0 if scratch is None else scratch.data_ptr(),
+                       seqs.data_ptr()),
                       (R, N, D, chunks, wstride, out.shape[1], int(depth4)),
                       stream)
     return out, totals, ok

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from plz4_tpu.ops import encode_pallas
-from plz4_tpu_torch import native
+from plz4_tpu_torch import corpus, native
 from plz4_tpu_torch.ops import _build, encode, encode_mid
 
 from conftest import make_compressible, make_incompressible
@@ -137,21 +137,27 @@ def host_lib():
     return _build.load_host()
 
 
-def _host_encode(lib, rows, lens, wins, wlens, depth4, wstride=1, chunks=1):
+def _host_encode(lib, rows, lens, wins, wlens, depth4, wstride=1, chunks=1,
+                 serial=False):
     """The CUDA kernel's row body (csrc/lz4_encode_mid.cuh) built with g++;
-    wins None is a plain batch (D = 0)."""
+    wins None is a plain batch (D = 0). serial runs the serial body (K6b's,
+    depth 2 only) instead of the lanes' body."""
     R, width = rows.shape
     Dw = 0 if wins is None else wins.shape[1]
     CAP = encode.out_width(width)
     out = np.zeros((R, CAP), np.uint8)
     tot = np.zeros(R, np.int32)
     ok = np.zeros(R, np.uint8)
-    lib.lz4t_host_encode_mid(
-        rows.ctypes.data, lens.ctypes.data,
-        0 if wins is None else wins.ctypes.data,
-        0 if wlens is None else wlens.ctypes.data, out.ctypes.data,
-        tot.ctypes.data, ok.ctypes.data, R, width, Dw, chunks, wstride, CAP,
-        int(depth4))
+    args = (rows.ctypes.data, lens.ctypes.data,
+            0 if wins is None else wins.ctypes.data,
+            0 if wlens is None else wlens.ctypes.data, out.ctypes.data,
+            tot.ctypes.data, ok.ctypes.data, R, width, Dw, chunks, wstride,
+            CAP)
+    if serial:
+        assert not depth4
+        lib.lz4t_host_encode_mid_serial(*args)
+    else:
+        lib.lz4t_host_encode_mid(*args, int(depth4))
     return out, tot, ok
 
 
@@ -346,3 +352,148 @@ def test_encode_batch_mid_rejects_bad_shapes(kw, err):
     lens = torch.zeros((2,), dtype=torch.int32)
     with pytest.raises(ValueError, match=err):
         encode_mid.encode_batch_mid_window(data, lens, win, lens, **kw)
+
+
+# ---------------------------------------------------------------------------
+# edge rows of the warp-cooperative parse (corpus.chain_edge_rows): runs of
+# periods 1-4, crowded buckets, a step's first match on every lane, matches
+# to matchlimit, 13-80-byte blocks, and copies 65,534-65,536 bytes back
+# from a window at preload strides 1 and 2
+# ---------------------------------------------------------------------------
+
+EDGE_N = 8192
+EDGE, FAR = corpus.chain_edge_rows()
+
+
+@functools.lru_cache(maxsize=None)
+def _edge(depth4: bool):
+    rows, lens = _rows(list(EDGE.values()), EDGE_N)
+    ref = _np(encode_pallas.encode_batch_pallas_mid(
+        jnp.asarray(rows), jnp.asarray(lens), interpret=True, depth4=depth4))
+    got = _np(encode_mid.encode_batch_mid(*_t(rows, lens), depth4))
+    return (rows, lens), ref, got
+
+
+@functools.lru_cache(maxsize=None)
+def _far(depth4: bool, wstride: int):
+    args = _window_batch(FAR, list(FAR))
+    ref = _np(encode_pallas.encode_batch_pallas_mid_dict(
+        *(jnp.asarray(a) for a in args), interpret=True, depth4=depth4,
+        wstride=wstride))
+    got = _np(encode_mid.encode_batch_mid_window(
+        *_t(*args), depth4=depth4, wstride=wstride))
+    return args, ref, got
+
+
+@pytest.mark.parametrize("depth", list(DEPTHS))
+@pytest.mark.parametrize("name", list(EDGE))
+def test_edge_rows_plain_matches_pallas(name, depth):
+    _, ref, got = _edge(DEPTHS[depth])
+    _assert_same(ref, got, list(EDGE).index(name))
+
+
+@pytest.mark.parametrize("depth", list(DEPTHS))
+@pytest.mark.parametrize("name", list(EDGE))
+def test_edge_rows_kernel_row_body_matches_pallas(name, depth, host_lib):
+    (rows, lens), ref, _ = _edge(DEPTHS[depth])
+    _assert_same(ref, _host_encode(host_lib, rows, lens, None, None,
+                                   DEPTHS[depth]), list(EDGE).index(name))
+
+
+@pytest.mark.parametrize("wstride", [1, 2])
+@pytest.mark.parametrize("depth", list(DEPTHS))
+@pytest.mark.parametrize("name", list(FAR))
+def test_far_rows_plain_matches_pallas(name, depth, wstride):
+    _, ref, got = _far(DEPTHS[depth], wstride)
+    _assert_same(ref, got, list(FAR).index(name))
+
+
+@pytest.mark.parametrize("wstride", [1, 2])
+@pytest.mark.parametrize("depth", list(DEPTHS))
+@pytest.mark.parametrize("name", list(FAR))
+def test_far_rows_kernel_row_body_matches_pallas(name, depth, wstride,
+                                                 host_lib):
+    args, ref, _ = _far(DEPTHS[depth], wstride)
+    _assert_same(ref, _host_encode(host_lib, *args, DEPTHS[depth], wstride),
+                 list(FAR).index(name))
+
+
+def test_edge_rows_reach_their_lanes():
+    """The lane-hits row puts a step's first match on every lane: its
+    sequences start after 0-69 literals (the depth-2 plain version's
+    stream, read by the native decoder's sequence walk)."""
+    (_, lens), _, (out, tot, ok) = _edge(False)
+    i = list(EDGE).index("lane-hits")
+    assert ok[i]
+    s, p, lits = out[i, :int(tot[i])].tobytes(), 0, set()
+    while p < len(s):
+        tok = s[p]
+        p += 1
+        lit = tok >> 4
+        if lit == 15:
+            while s[p] == 255:
+                lit += 255
+                p += 1
+            lit += s[p]
+            p += 1
+        p += lit
+        lits.add(lit)
+        if p >= len(s):
+            break
+        p += 2
+        if tok & 15 == 15:
+            while s[p] == 255:
+                p += 1
+            p += 1
+    assert set(range(32)) <= lits
+
+
+def _cached_batches(depth4: bool):
+    """name -> (operands, wstride, chunks, Pallas outputs, plain version's
+    outputs or None) of every batch this module holds to Pallas."""
+    out = {"plain": (_plain_rows(depth4), 1, 1),
+           "edge": (_edge(depth4), 1, 1),
+           "chunks": (_chunks(depth4), 2, K)}
+    for ws in (1, 2):
+        out[f"windows-wstride{ws}"] = (_windows(depth4, ws), ws, 1)
+        out[f"far-wstride{ws}"] = (_far(depth4, ws), ws, 1)
+    for name in TINY:
+        out[f"tiny-{name}"] = (_tiny(name, depth4) + (None,), 1, 1)
+    return {name: (c[0] + (None, None) * (len(c[0]) == 2), ws, chunks, c[1],
+                   c[2])
+            for name, (c, ws, chunks) in out.items()}
+
+
+BATCHES = ["plain", "edge", "chunks", "windows-wstride1", "windows-wstride2",
+           "far-wstride1", "far-wstride2"] + [f"tiny-{n}" for n in TINY]
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+def test_serial_and_lanes_bodies_agree(batch, host_lib):
+    """K6b's serial row body (with K2c's emit) and the lanes' body give the
+    same ok and total on every row of every cached batch at depth 2, and
+    the same bytes where ok holds."""
+    args, ws, chunks, _, _ = _cached_batches(False)[batch]
+    lanes = _host_encode(host_lib, *args, False, ws, chunks)
+    serial = _host_encode(host_lib, *args, False, ws, chunks, serial=True)
+    for i in range(len(lanes[1])):
+        _assert_same(serial, lanes, i)
+
+
+@pytest.mark.parametrize("depth", list(DEPTHS))
+@pytest.mark.parametrize("batch", BATCHES)
+def test_streams_match_pallas_wherever_total_fits(batch, depth, host_lib):
+    """Every row whose total is below the overflow sentinel CAP carries the
+    Pallas kernel's bytes [0, total), ok or not: the large-block path
+    stitches the stream of a chunk that did not shrink. Held for the
+    lanes' body and the plain version."""
+    args, ws, chunks, ref, got = _cached_batches(DEPTHS[depth])[batch]
+    host = _host_encode(host_lib, *args, DEPTHS[depth], ws, chunks)
+    CAP = ref[0].shape[1]
+    if batch == "plain":  # random64k does not shrink, yet has a stream
+        assert any(t < CAP and not k for t, k in zip(ref[1], ref[2]))
+    for res in (host,) if got is None else (host, got):
+        assert res[1].tolist() == ref[1].tolist()
+        for i, t in enumerate(ref[1].tolist()):
+            if t < CAP:
+                assert res[0][i, :t].tobytes() == ref[0][i, :t].tobytes()

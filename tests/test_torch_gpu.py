@@ -164,6 +164,91 @@ def test_encode_mid_kernel_matches_plain(cuda, depth4):
         _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
 
 
+def _chain_edge_batches():
+    """corpus.chain_edge_rows as operands: the plain rows, 8 KiB wide, and
+    the window rows, 64 KiB wide after 64 KiB windows (depth 4 keeps two of
+    its tables in device memory there)."""
+    plain, windowed = corpus.chain_edge_rows()
+    rows, lens = _rows(list(plain.values()), 8192)
+    wrows, wlens = _rows([b for b, _, _ in windowed.values()], N)
+    wins = torch.from_numpy(np.stack([np.frombuffer(w, np.uint8)
+                                      for _, w, _ in windowed.values()]))
+    usable = torch.tensor([u for _, _, u in windowed.values()],
+                          dtype=torch.int32)
+    return (rows, lens), (wrows, wlens, wins, usable)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth4", [False, True], ids=["K2c", "K2d"])
+def test_encode_mid_kernel_edge_rows_match_plain(cuda, depth4):
+    """The rows aimed at the warp-cooperative parse's steps, plain and
+    after windows at preload strides 1 and 2."""
+    (rows, lens), far = _chain_edge_batches()
+    assert encode_mid.tables_spill(N, N, True)
+    kern = encode_mid.encode_batch_mid(rows.to(cuda), lens.to(cuda), depth4)
+    plain = encode_mid.encode_batch_mid_plain(rows, lens, depth4)
+    _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
+    for wstride in (1, 2):
+        kern = encode_mid.encode_batch_mid_window(
+            *(x.to(cuda) for x in far), depth4, wstride)
+        plain = encode_mid.encode_batch_mid_window_plain(*far, depth4,
+                                                         wstride)
+        _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
+
+
+def _random_chunk_block() -> bytes:
+    """A 3.5-chunk block of text whose second 64 KiB chunk is random: that
+    chunk does not shrink, and the large-block path stitches its stream."""
+    text = corpus.silesia_like(3 * N, seed=6)
+    noise = np.random.default_rng(23).integers(0, 256, N, dtype=np.uint8)
+    return text[:N] + noise.tobytes() + text[N:2 * N + N // 2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth4", [False, True], ids=["K2c", "K2d"])
+def test_encode_mid_kernel_writes_streams_that_do_not_shrink(cuda, depth4):
+    """Every row below the overflow sentinel carries the plain version's
+    bytes [0, total), ok or not: plain rows (a random one among them) and
+    the chunk rows of blocks with a random chunk."""
+    rows, lens = _rows(_payloads(), N)
+    CAP = encode.out_width(N)
+    kern = encode_mid.encode_batch_mid(rows.to(cuda), lens.to(cuda), depth4)
+    plain = encode_mid.encode_batch_mid_plain(rows, lens, depth4)
+    fits = plain[1] < CAP
+    assert bool((fits & ~plain[2]).any())
+    _same_rows(kern, plain, torch.where(fits, plain[1], 0))
+    a = torch.zeros((8, N), dtype=torch.uint8)
+    ln = torch.zeros((8,), dtype=torch.int32)
+    wl = torch.zeros((8,), dtype=torch.int32)
+    da = torch.zeros((2, N), dtype=torch.uint8)
+    large.stage_chunks([_random_chunk_block()] * 2, [None, b"x" * 1000],
+                       a.numpy().reshape(2, 4, N), ln.numpy().reshape(2, 4),
+                       wl.numpy().reshape(2, 4), da.numpy())
+    kw = dict(wstride=large.CHUNK_WSTRIDE, chunks=4)
+    kern = encode_mid.encode_batch_mid_window(
+        a.to(cuda), ln.to(cuda), da.to(cuda), wl.to(cuda), depth4, **kw)
+    plain = encode_mid.encode_batch_mid_window_plain(a, ln, da, wl, depth4,
+                                                     **kw)
+    fits = plain[1] < CAP
+    assert bool((fits & ~plain[2]).any())
+    _same_rows(kern, plain, torch.where(fits, plain[1], 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", [3, 8])
+def test_device_frame_with_a_random_chunk_matches_plain_frame(cuda, level):
+    """A 4 MiB-block frame whose one block has a random 64 KiB chunk: that
+    chunk's literals are stitched into the block as the plain version
+    stitches them."""
+    data = _random_chunk_block()
+    kw = dict(backend="device", level=level, device_batch=4)
+    frame = plz4_tpu_torch.compress(data, device="cuda", **kw)
+    assert frame == plz4_tpu_torch.compress(data, device="cpu", **kw)
+    assert len(frame) < len(data)
+    assert plz4_tpu_torch.decompress(frame, backend="device") == data
+    assert plz4_tpu_torch.decompress(frame, backend="native") == data
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("tries", [2, 32])
 def test_encode_deep_kernel_matches_plain(cuda, tries):
