@@ -7,7 +7,10 @@ backend="device" and checks that they went through the kernels:
 
   * a 256 MiB LZ4 frame of 64 KiB level-1 blocks (K2a, K1);
   * the same 256 MiB at the default 4 MiB blocks (K2b over 64 KiB chunk
-    rows, K5 over records);
+    rows, K5 over records); K2a and K2b are also held to their plain
+    versions on the rows aimed at their warp steps
+    (corpus.greedy_edge_rows) and on a block with a random chunk, wherever
+    total < CAP;
   * 32 MiB frames of 64 KiB blocks with a dictionary (K2b, K3) and with
     linked blocks (K2b);
   * the level ladder: the bench-corpus ratio at levels 3, 8 and 9-12, a
@@ -208,9 +211,34 @@ def main() -> int:
         return 1
     import plz4_tpu_torch as plz4
     from plz4_tpu_torch import corpus, native
-    from plz4_tpu_torch.ops import _build, decode, encode
+    from plz4_tpu_torch.ops import (_build, decode, encode, encode_deep,
+                                    encode_mid, encode_wide, xxh32)
+    from plz4_tpu_torch.parallel import batch, large
 
     dev = torch.device("cuda", 0)
+    # every kernel wrapper's launch counter
+    counters = [(encode, "launches"), (encode, "window_launches"),
+                (encode_mid, "launches"), (encode_mid, "window_launches"),
+                (encode_deep, "launches"), (encode_deep, "window_launches"),
+                (decode, "launches"), (decode, "dict_launches"),
+                (decode, "record_launches"), (encode_wide, "launches"),
+                (encode_wide, "mid_launches"), (decode, "wide_launches"),
+                (xxh32, "launches")]
+
+    def reset():
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+        large.host_decodes = 0
+
+    def read():
+        return {f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(mod, attr)
+                for mod, attr in counters}
+
+    def encode_others(counts, key):
+        """The encode launches other than key's (the decode side and K7 are
+        read separately)."""
+        return {k: v for k, v in counts.items()
+                if v and k != key and k.startswith("encode")}
     # ---- 1. device ------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -241,9 +269,10 @@ def main() -> int:
     edges = edge_payloads()
     main_rows = [main_data[i:i + BLOCK] for i in range(0, ROWS * BLOCK, BLOCK)]
 
-    def both(name, kern_fn, plain_fn, host_args, what, **kw):
+    def both(name, kern_fn, plain_fn, host_args, what, upto="ok", **kw):
         """Run an encode kernel and its plain version on the same rows; hold
-        ok, totals and each ok row's stream bytes equal. Returns (device
+        ok, totals and each ok row's stream bytes equal (with upto="cap",
+        each stream wherever total < CAP, ok or not). Returns (device
         operands, kernel outputs, plain outputs, plain ms, max abs err)."""
         dev_args = [x.to(dev) for x in host_args]
         kern = kern_fn(*dev_args, **kw)
@@ -253,23 +282,32 @@ def main() -> int:
         check(bool((kern[1].cpu().numpy() == tot).all()
                    and (kern[2].cpu().numpy() == okv).all()),
               f"{name} ok/total equal plain on {what}")
-        err = max_err(kern, plain, np.where(okv, tot, 0))
-        check(err == 0, f"{name} stream bytes equal plain where ok on {what} "
+        sel = tot < plain[0].shape[1] if upto == "cap" else okv
+        err = max_err(kern, plain, np.where(sel, tot, 0))
+        where = "wherever total < CAP" if upto == "cap" else "where ok"
+        check(err == 0, f"{name} stream bytes equal plain {where} on {what} "
                         f"(max abs err {err})")
         return dev_args, kern, plain, p_ms, err
 
     # ---- 3. K2a against its plain version --------------------------------
-    def enc_both(payloads):
+    def enc_both(payloads, what=None):
         return both("K2a", encode.encode_batch, encode.encode_batch_plain,
                     [torch.from_numpy(x) for x in rows_of(payloads, BLOCK)],
-                    f"{len(payloads)} rows")
+                    what or f"{len(payloads)} rows", upto="cap")
 
     (e_in, e_kern, e_plain, enc_plain_ms, enc_err) = enc_both(main_rows)
     (_, x_kern, _, _, x_err) = enc_both(bench_rows + edges)
+    # rows aimed at the greedy parse's warp steps: a search ending on every
+    # lane, at skip strides 1-3 and over 30, crowded buckets, runs,
+    # matches to matchlimit, 13-80-byte blocks
+    greedy_plain, greedy_far = corpus.greedy_edge_rows()
+    enc_err = max(enc_err, enc_both(
+        list(greedy_plain.values()),
+        f"the {len(greedy_plain)} greedy step edge rows")[4])
     x_tot = x_kern[1].cpu().numpy()
     ratio = 32 * BLOCK / int(x_tot[:32].sum())
     print(f"K2a level-1 ratio on the bench corpus (32 rows): {ratio:.4f}")
-    check(round(ratio, 3) == 2.407, "bench-corpus ratio rounds to 2.407")
+    check(round(ratio, 4) == 2.4065, "bench-corpus ratio 2.4065")
     enc_ms = cuda_ms(lambda: encode.encode_batch(*e_in), 20)
     e_tot = e_plain[1].numpy()
     enc_bound = bound_ms(ROWS * BLOCK + 8 * ROWS + int(e_tot.sum()) + ROWS,
@@ -334,16 +372,20 @@ def main() -> int:
                           backend="device") == warm, "warm-up round trip")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    encode.launches = decode.launches = 0
+    reset()
     frame, t_enc = host_ms(lambda: plz4.compress(main_data, **opts))
+    torch.cuda.synchronize()
+    enc_counts = read()
     back, t_dec = host_ms(lambda: plz4.decompress(frame, backend="device"))
     torch.cuda.synchronize()
     enc_launches, dec_launches = encode.launches, decode.launches
     peak = torch.cuda.max_memory_allocated()
     check(back == main_data, "256 MiB device round trip is intact")
     n_blocks = len(main_data) // BLOCK
-    check(enc_launches == math.ceil(n_blocks / ROWS),
-          f"K2a ran once per batch on the main path ({enc_launches})")
+    others = encode_others(enc_counts, "encode.launches")
+    check(enc_launches == math.ceil(n_blocks / ROWS) and not others,
+          f"K2a ran once per batch on the main path ({enc_launches}), no "
+          f"other encode kernel ({others})")
     read_batch = plz4.Options(**opts).pending_budget()
     check(dec_launches == math.ceil(n_blocks / read_batch),
           f"K1 ran once per batch on the main path ({dec_launches})")
@@ -359,10 +401,12 @@ def main() -> int:
           f"kernel ms per {ROWS}-row batch: K2a {enc_ms:.3f}, K1 "
           f"{dec_ms:.3f}; frame ratio {len(main_data) / len(frame):.4f}; "
           f"peak device memory {peak / 2**20:.1f} MiB")
+    print(f"kernel share of wall at 64 KiB: encode K2a {enc_launches} x "
+          f"{enc_ms:.3f} ms = {100 * enc_launches * enc_ms / t_enc:.1f}% of "
+          f"{t_enc:.1f} ms; decode K1 {dec_launches} x {dec_ms:.3f} ms = "
+          f"{100 * dec_launches * dec_ms / t_dec:.1f}% of {t_dec:.1f} ms")
 
     # ---- 6. K2b against its plain version -------------------------------
-    from plz4_tpu_torch.parallel import large
-
     big_blocks = [main_data[i * BIG:(i + 1) * BIG] for i in range(2)]
     dict64 = corpus.silesia_like(BLOCK, seed=77)
 
@@ -382,7 +426,8 @@ def main() -> int:
 
     def window_both(host_args, what, **kw):
         return both("K2b", encode.encode_batch_window,
-                    encode.encode_batch_window_plain, host_args, what, **kw)
+                    encode.encode_batch_window_plain, host_args, what,
+                    upto="cap", **kw)
 
     cw_host = chunk_batch(big_blocks, None)
     (cw_in, cw_kern, cw_plain, encw_plain_ms, encw_err) = window_both(
@@ -401,6 +446,29 @@ def main() -> int:
               torch.tensor([BLOCK, 3000, 0, BLOCK], dtype=torch.int32))
     (_, ww_kern, _, _, ww_err) = window_both(
         w_host, "rows with a full, a partial and an empty window (wstride 1)")
+    # copies 65,534-65,536 bytes back from 64 KiB windows
+    fa, fn = rows_of([b for b, _, _ in greedy_far.values()], BLOCK)
+    fw, _ = rows_of([w for _, w, _ in greedy_far.values()], BLOCK)
+    far_host = (torch.from_numpy(fa), torch.from_numpy(fn),
+                torch.from_numpy(fw),
+                torch.tensor([u for _, _, u in greedy_far.values()],
+                             dtype=torch.int32))
+    for ws in (1, 2):
+        ww_err = max(ww_err, window_both(
+            far_host, f"copies 65,534-65,536 bytes back from 64 KiB windows "
+            f"(wstride {ws})", wstride=ws)[4])
+    # a 3.5-chunk block whose second chunk is random: that chunk does not
+    # shrink, yet the large-block path stitches its stream (literals)
+    text = corpus.silesia_like(3 * BLOCK, seed=6)
+    noise = np.random.default_rng(23).integers(0, 256, BLOCK, dtype=np.uint8)
+    rnd_block = text[:BLOCK] + noise.tobytes() + text[BLOCK:5 * BLOCK // 2]
+    rnd_host = chunk_batch([rnd_block], None)
+    _, _, r_plain, _, r_err = window_both(
+        rnd_host, "the chunk rows of a block with a random chunk (wstride 2)",
+        wstride=large.CHUNK_WSTRIDE, chunks=CHUNKS)
+    check(bool(((r_plain[1] < r_plain[0].shape[1]) & ~r_plain[2]).any()),
+          "the random chunk does not shrink")
+    ww_err = max(ww_err, r_err)
     encw_ms = cuda_ms(lambda: encode.encode_batch_window(
         *cw_in, wstride=large.CHUNK_WSTRIDE, chunks=CHUNKS), 10)
     cw_lens = cw_host[1].numpy()
@@ -533,16 +601,16 @@ def main() -> int:
     del frame, back, native_frame
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    encode.launches = encode.window_launches = 0
-    decode.launches = decode.dict_launches = decode.record_launches = 0
-    large.host_decodes = 0
+    reset()
     with RssPeak() as rss:
         frame4, t_enc4 = host_ms(lambda: plz4.compress(main_data, **opts4))
+        torch.cuda.synchronize()
+        enc4_others = encode_others(read(), "encode.window_launches")
         back4, t_dec4 = host_ms(lambda: plz4.decompress(frame4,
                                                         backend="device"))
         torch.cuda.synchronize()
     k2b_launches, k5_launches = encode.window_launches, decode.record_launches
-    other4 = (encode.launches, decode.launches, decode.dict_launches)
+    other4 = (decode.launches, decode.dict_launches)
     valve = large.host_decodes
     peak4 = torch.cuda.max_memory_allocated()
     check(back4 == main_data, "256 MiB device round trip at 4 MiB blocks is "
@@ -553,7 +621,9 @@ def main() -> int:
     read_batch4 = plz4.Options(**opts4).pending_budget()
     check(k5_launches == math.ceil(n_big / read_batch4),
           f"K5 ran once per {read_batch4}-block reader batch ({k5_launches})")
-    check(other4 == (0, 0, 0), f"no K2a/K1/K3 launch at 4 MiB ({other4})")
+    check(other4 == (0, 0) and not enc4_others,
+          f"no other encode kernel ({enc4_others}) and no K1/K3 launch "
+          f"({other4}) at 4 MiB")
     check(valve == 0, "no block took the host valve")
     check(plz4.decompress(frame4, backend="native") == main_data,
           "4 MiB device frame decodes with backend=native")
@@ -625,9 +695,6 @@ def main() -> int:
               f"{name}: the first 8 MiB frame equals the device=cpu frame")
 
     # ---- 11. K2c, K2d and K4 against their plain versions ---------------
-    from plz4_tpu_torch.ops import encode_deep, encode_mid, encode_wide, xxh32
-    from plz4_tpu_torch.parallel import batch
-
     main_host = tuple(torch.from_numpy(x) for x in rows_of(main_rows, BLOCK))
     edge_host = tuple(torch.from_numpy(x) for x in rows_of(edges, BLOCK))
     chunk_what = f"{2 * CHUNKS} chunk rows of two 4 MiB blocks"
@@ -645,12 +712,6 @@ def main() -> int:
                 torch.from_numpy(fw),
                 torch.tensor([u for _, _, u in step_far.values()],
                              dtype=torch.int32))
-    # a 3.5-chunk block whose second chunk is random: that chunk does not
-    # shrink, yet the large-block path stitches its stream (literals)
-    text = corpus.silesia_like(3 * BLOCK, seed=6)
-    noise = np.random.default_rng(23).integers(0, 256, BLOCK, dtype=np.uint8)
-    rnd_block = text[:BLOCK] + noise.tobytes() + text[BLOCK:5 * BLOCK // 2]
-    rnd_host = chunk_batch([rnd_block], None)
     mid = {}  # depth4 -> (ms, plain ms, max err, plain totals, chunk ms)
     for depth4, name in ((False, "K2c"), (True, "K2d")):
         m_in, _, m_plain, m_plain_ms, m_err = both(
@@ -698,7 +759,7 @@ def main() -> int:
             *c_in, depth4, large.CHUNK_WSTRIDE, CHUNKS), 5)
         mid[depth4] = (ms, m_plain_ms, max(errs), m_plain[1].numpy(), c_ms)
         del m_in, c_in
-    for level in (3, 8):
+    for level in (1, 3, 8):
         f = plz4.compress(rnd_block, backend="device", level=level)
         check(f == plz4.compress(rnd_block, backend="device", level=level,
                                  device="cpu") and len(f) < len(rnd_block),
@@ -759,23 +820,6 @@ def main() -> int:
               f"level {level} bench-corpus ratio {r:.4f} == {want}")
 
     # ---- 13. this slice's main path: 256 MiB at level 9 ------------------
-    counters = [(encode, "launches"), (encode, "window_launches"),
-                (encode_mid, "launches"), (encode_mid, "window_launches"),
-                (encode_deep, "launches"), (encode_deep, "window_launches"),
-                (decode, "launches"), (decode, "dict_launches"),
-                (decode, "record_launches"), (encode_wide, "launches"),
-                (encode_wide, "mid_launches"), (decode, "wide_launches"),
-                (xxh32, "launches")]
-
-    def reset():
-        for mod, attr in counters:
-            setattr(mod, attr, 0)
-        large.host_decodes = 0
-
-    def read():
-        return {f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(mod, attr)
-                for mod, attr in counters}
-
     del frame4, back4, native4
     k4_launches = 0
     for label, o9, warm_n, k4_key, n_batches, k4_ms in (

@@ -275,3 +275,94 @@ def chain_edge_rows(seed: int = 6) -> tuple[dict, dict]:
                 "far-repeats": ((rand(1000) * 5)[:4096],
                                 (rand(4096) * 16)[:65536], 65536)}
     return plain, windowed
+
+
+def _greedy_bucket(words: np.ndarray) -> np.ndarray:
+    """The greedy encoders' 14-bit bucket of little-endian u32 words."""
+    return ((words.astype(np.uint64) * 2654435761 % (1 << 32))
+            >> 18).astype(np.int64)
+
+
+def _skip_offset(cnt: int) -> int:
+    """Offset from a greedy search's start of its attempt cnt (the skip
+    steps 1 + (k >> 6) summed over k < cnt)."""
+    return sum(1 + (k >> 6) for k in range(cnt))
+
+
+def greedy_edge_rows(seed: int = 7) -> tuple[dict, dict]:
+    """Rows aimed at the steps of the greedy encoders' warp-cooperative
+    parse (K2a, K2b), which runs a search's first attempts as scalar code and
+    then scores 32 attempts of the skip schedule per step: (plain,
+    windowed).
+
+    plain maps a name to a block of at most 64 KiB:
+      * skip rows: a 16-byte key at the row's start, then copies of it, each
+        after a fresh stretch that puts the copy at attempt k of its search
+        (k = 0-69, 60-70 and 120-134, and one row with k = 1,500 and 2,100),
+        so a search's first match falls on every lane of a step, at skip
+        strides 1-3 and 24-33, and the stride changes inside a step;
+      * buckets: fresh words that share a 14-bit bucket, more than one of
+        them inside 32 attempts, in shuffled groups and as A B A (A, B
+        distinct), and words whose 2-byte rotation shares their bucket, so a
+        lane's candidate is a lower lane that holds another word;
+      * corpus.chain_edge_rows' runs of periods 1-4 (alone and after fresh
+        bytes), matches to matchlimit and blocks of 13-80 bytes.
+    windowed is chain_edge_rows' windowed rows: copies from a 64 KiB window
+    exactly 65,534, 65,535 and 65,536 bytes back."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n: int) -> bytes:
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    def skip_row(ks) -> bytes:
+        # each copy of the key ends its search at attempt k; the next search
+        # starts after the copy (16 bytes, a fresh byte after it). The first
+        # search starts on the key itself and takes a copy at attempt 40.
+        key = rand(16)
+        row = bytearray(key)
+        start = 0
+        for k in [40] + list(ks):
+            fill = start + _skip_offset(k) - len(row)
+            row += rand(fill) + key
+            start = len(row)
+        return bytes(row + rand(16))
+
+    chain_plain, windowed = chain_edge_rows()
+    plain = {"skip-0-69": skip_row(range(70)),
+             "skip-60-70": skip_row(range(60, 71)),
+             "skip-120-134": skip_row(range(120, 135)),
+             "skip-1500-2100": skip_row([1500, 2100])}
+    # bucket rows: groups of fresh bytes and same-bucket words, each closed
+    # by a copy of a key that ends the search, so the next group's words
+    # fall on the first lanes of a search's first step (stride 1)
+    key = rand(16)
+    cand = np.frombuffer(rand(4 << 16), np.uint32)
+    b = _greedy_bucket(cand)
+    words = [w.tobytes() for w in cand[b == np.bincount(b).argmax()][:8]]
+    crowd = bytearray(key + rand(24) + key)
+    for g in range(60):
+        crowd += rand(int(rng.integers(3, 12)))
+        for k in rng.permutation(len(words))[:int(rng.integers(2, 6))]:
+            crowd += words[k]
+        if g % 2:
+            crowd += words[g % 3] + words[(g + 1) % 3] + words[g % 3]
+        else:
+            crowd += words[g % 8] + rand(g % 3) + words[g % 8]
+        crowd += key
+    plain["bucket-crowd"] = bytes(crowd)
+    cand = np.frombuffer(rand(4 << 20), np.uint32)
+    b = _greedy_bucket(cand)
+    order = np.argsort(b, kind="stable")
+    same = np.flatnonzero(b[order][1:] == b[order][:-1])[::2][:48]
+    pairs = [(cand[order][k].tobytes(), cand[order][k + 1].tobytes())
+             for k in same]
+    rot = cand[b == _greedy_bucket((cand << 16) | (cand >> 16))]
+    peer = bytearray(key + rand(24) + key)
+    for k, (a, b_) in enumerate(pairs):
+        peer += rand(3 + k % 11) + a + b_ + a + rand(5) + key
+    for k, wv in enumerate(rot[:48]):
+        peer += rand(3 + k % 9) + wv.tobytes() * 2 + rand(6) + key
+    plain["peer-order"] = bytes(peer)
+    plain.update({k: v for k, v in chain_plain.items()
+                  if k.startswith(("period", "to-matchlimit", "short"))})
+    return plain, windowed

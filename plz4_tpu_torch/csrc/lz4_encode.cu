@@ -1,22 +1,39 @@
-// K2a: greedy LZ4 block encode, one thread block per row.
+// K2a: greedy LZ4 block encode, one thread block per row, parsed by one
+// warp.
 //
 // Replaces the Pallas TPU kernel plz4_tpu/ops/encode_pallas.py:
 // _encode_kernel_bw in greedy mode without a window (reached through
 // _encode_call_bw, encode_block_pallas and encode_batch_pallas). The row
-// body is lz4t_encode_row (lz4_encode.cuh, base = first = 0, with the
-// value table), byte-exact with that kernel.
+// body is lz4t_encode_row_lanes (lz4_encode.cuh, base = first = 0),
+// byte-exact with that kernel; why the lanes' steps give the serial
+// parse's bytes is said there.
 //
-// What bounds it on this card: the parse is one serial, data-dependent
-// chain (hash, table probe, compare, extend) per row, so it is bound by the
-// latency of one thread's dependent shared-memory loads, not by bytes
-// (a batch moves ~12 MB, ~3.5 us of HBM time) nor by arithmetic.
-// What the design does about it: every load of the serial thread hits
-// shared memory. The block's 256 threads zero the two 2^14 x 4 B tables
-// (128 KiB) and stage the row (N + 8 bytes) into shared memory together,
-// then thread 0 runs the parse and writes the stream to global memory
-// (stores do not stall it). Rows run in parallel, one block per SM (196 KiB
-// of shared memory each at N = 64 KiB). Several rows per SM, u16 tables
-// and warp-cooperative copies are later work.
+// What bounds it on this card: not bytes (a batch moves ~12 MB, ~3.5 us of
+// HBM time) nor arithmetic, but the parse's dependent steps. Each search
+// inserts every position it scans before the next one reads the table,
+// and a match is extended before the next search may start, so a row is
+// one chain of dependent steps, ~6.7 K sequences for a 64 KiB row of mixed
+// text; a launch of 128 rows on 132 SMs, one row each, lasts as long as
+// its slowest row.
+// What the design does about it: the parse is one warp's, its 32 lanes in
+// step, so a long search costs one warp step per 32 attempts instead of
+// one thread's walk over every attempt and byte. Lane i takes attempt
+// cnt0 + i of the skip schedule (closed form, lz4t_skip_offset), its
+// candidate from the table or from the lower lanes of its bucket, and a
+// ballot picks the first match; the lanes also read the match's first
+// extension bytes, and only longer extensions take a step of 32 byte pairs
+// backward or 128 bytes forward. A search's first three attempts, which
+// end most searches, run as scalar code on every lane (no cross-lane
+// step), and a step calls __match_any_sync (~340 cycles for 32 distinct
+// keys) only when a byte table of lane numbers shows two lanes in one
+// bucket. The parse writes no output: it stores each sequence with its
+// output position (16 B, in a device scratch of N / 4 + 2 per row that the
+// wrapper allocates), and after it all 256 threads of the block write the
+// sequences, wherever total < CAP. The row (N + 8 bytes), the position
+// table (2^14 x 4 B) and the byte table (2^14 B) live in shared memory,
+// the row first (a word read at its last position reads one word past it,
+// into the table): 147,464 B at N = 64 KiB. The slot's stored word is
+// re-read at its position (lz4_encode.cuh), so there is no value table.
 #include <cuda_runtime.h>
 
 #include "lz4_encode.cuh"
@@ -31,43 +48,57 @@ __global__ void __launch_bounds__(kThreads)
                        const int32_t* __restrict__ lens,
                        uint8_t* __restrict__ out,
                        int32_t* __restrict__ totals, bool* __restrict__ ok,
-                       int N, int CAP) {
+                       int* __restrict__ seqs, int N, int CAP) {
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* tab = smem;
-  uint32_t* vtab = smem + kTab;
-  uint32_t* roww = smem + 2 * kTab;
+  const int DT = N + 8;
+  uint32_t* roww = smem;  // [block N | 8 zero bytes], the table, own
+  uint32_t* tab = smem + DT / 4;
+  uint8_t* own = reinterpret_cast<uint8_t*>(tab + kTab);
   const int b = blockIdx.x;
   const uint32_t* src =
       reinterpret_cast<const uint32_t*>(data + (size_t)b * N);
-  for (int i = threadIdx.x; i < 2 * kTab; i += blockDim.x) smem[i] = 0;
+  for (int i = threadIdx.x; i < kTab; i += blockDim.x) tab[i] = 0;
   for (int i = threadIdx.x; i < N / 4; i += blockDim.x) roww[i] = src[i];
   if (threadIdx.x < 2) roww[N / 4 + threadIdx.x] = 0;  // 8 zero tail bytes
   __syncthreads();
-  if (threadIdx.x == 0) {
+  // warp 0 parses into the row's sequences, then the block writes them.
+  // The count goes to the scratch's last record, which no sequence takes
+  // (a row holds at most N / 4 of them), for every thread to read after
+  // the barrier; 0 at the overflow sentinel, whose bytes no caller reads.
+  int* seq = seqs + (size_t)b * 4 * (N / 4 + 2);
+  int* count = seq + 4 * (N / 4 + 1);
+  if (threadIdx.x < 32) {
     int total, okv;
-    lz4t_encode_row<true>(reinterpret_cast<const uint8_t*>(roww), N + 8, 0, 0,
-                          lens[b], out + (size_t)b * CAP, CAP, tab, vtab,
-                          &total, &okv);
-    totals[b] = total;
-    ok[b] = okv != 0;
+    const int k = lz4t_encode_row_lanes(roww, DT, 0, 0, lens[b], CAP, tab,
+                                        own, seq, &total, &okv);
+    if (threadIdx.x == 0) {
+      *count = total < CAP ? k : 0;
+      totals[b] = total;
+      ok[b] = okv != 0;
+    }
   }
+  __syncthreads();
+  lz4t_seq_emit(reinterpret_cast<const uint8_t*>(roww),
+                out + (size_t)b * CAP, CAP, 0, seq, *count, threadIdx.x,
+                kThreads);
 }
 
 }  // namespace
 
-// data (B, N) u8 with N % 4 == 0, lens (B,) i32 -> out (B, CAP) u8,
-// totals (B,) i32, ok (B,) bool. Returns a cudaError_t (ops/_build.py
-// holds each library's C signature).
+// data (B, N) u8 with N % 4 == 0, lens (B,) i32, seqs (B, N / 4 + 2, 4) i32
+// scratch -> out (B, CAP) u8 (the stream wherever total < CAP), totals (B,)
+// i32, ok (B,) bool. Returns a cudaError_t (ops/_build.py holds each
+// library's C signature).
 extern "C" int lz4t_launch(const void* data, const void* lens, void* out,
-                           void* totals, void* ok, int B, int N, int CAP,
-                           void* stream) {
-  const int smem = 2 * kTab * 4 + N + 8;
+                           void* totals, void* ok, void* seqs, int B, int N,
+                           int CAP, void* stream) {
+  const int smem = kTab * 5 + N + 8;
   cudaError_t e = cudaFuncSetAttribute(
       lz4t_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   lz4t_encode_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)data, (const int32_t*)lens, (uint8_t*)out,
-      (int32_t*)totals, (bool*)ok, N, CAP);
+      (int32_t*)totals, (bool*)ok, (int*)seqs, N, CAP);
   return cudaGetLastError();
 }
 

@@ -37,10 +37,16 @@
 // (vtab[h] = u beside tab[h] = p + 1). Every stored p lies below the clip
 // (p <= mflimit, p <= nip - 2 or p < base) and the row never changes, so
 // vtab[h] always equals the word at tab[h] - 1: kVtab = false re-reads it
-// there instead, which halves the tables' shared memory (K2b needs that).
+// there instead, which halves the tables' shared memory.
+//
+// Two bodies give these bytes. lz4t_encode_row is the serial one: K6b's
+// (with the value table and its emit) and the host build's reference for
+// the lanes' body. lz4t_encode_row_lanes is K2a's and K2b's: one warp
+// parses, the sequences are stored, and lz4t_seq_emit writes them.
 #pragma once
 
 #include "lz4_common.cuh"
+#include "lz4_lanes.cuh"
 
 // little-endian word at byte p of the row
 LZ4T_HD uint32_t lz4t_rd32(const uint8_t* c, int p) {
@@ -248,4 +254,321 @@ LZ4T_HD void lz4t_encode_row(const uint8_t* c, int DT, int base, int first,
     op = lz4t_emit<kGuard>(c, o, OT, op, anchor, end, 0, 0);
   *total_out = op;
   *ok_out = (op < n) && !overflow;
+}
+
+// ---------------------------------------------------------------------------
+// the parse on the 32 lanes of a warp, and the sequences it stores (K2a,
+// K2b; K2c and K2d store and write theirs the same way)
+// ---------------------------------------------------------------------------
+
+// the little-endian words at bytes p, p + 4 and p + 8 of the u32-aligned
+// row w: four aligned loads and three funnel shifts (w holds the words up
+// to (p + 15) >> 2)
+LZ4T_HD void lz4t_rd32w3(const uint32_t* w, int p, uint32_t* x) {
+  const uint32_t* q = w + (p >> 2);
+  const uint32_t a = q[0], b = q[1], c = q[2], d = q[3];
+  const int sh = (p & 3) * 8;
+#if defined(__CUDA_ARCH__)
+  x[0] = __funnelshift_r(a, b, sh);
+  x[1] = __funnelshift_r(b, c, sh);
+  x[2] = __funnelshift_r(c, d, sh);
+#else
+  x[0] = (uint32_t)((((uint64_t)b << 32) | a) >> sh);
+  x[1] = (uint32_t)((((uint64_t)c << 32) | b) >> sh);
+  x[2] = (uint32_t)((((uint64_t)d << 32) | c) >> sh);
+#endif
+}
+
+// the little-endian word at byte p of w (w holds the word after p >> 2)
+LZ4T_HD uint32_t lz4t_rd32w(const uint32_t* w, int p) {
+  const uint32_t lo = w[p >> 2], hi = w[(p >> 2) + 1];
+#if defined(__CUDA_ARCH__)
+  return __funnelshift_r(lo, hi, (p & 3) * 8);
+#else
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> ((p & 3) * 8));
+#endif
+}
+
+// The output bytes of a sequence that the room guard lets through:
+// lz4t_emit_sequence's count, literals lit, match mlen (0: final
+// literals) (lit >= 15 adds (lit - 15) / 255 + 1 = (lit + 240) / 255 length
+// bytes, which is 0 below 15; mlen >= 19 likewise (mlen + 236) / 255).
+LZ4T_HD int lz4t_seq_bytes(int lit, int mlen) {
+  return 1 + lit + (int)((unsigned)(lit + 240) / 255u) +
+         (mlen ? 2 + (int)((unsigned)(mlen + 236) / 255u) : 0);
+}
+
+// sequence k of seq: (op, mip, mlen, mip - mpos)
+LZ4T_HD void lz4t_seq_put(int* seq, int k, int op, int mip, int mlen,
+                          int mpos) {
+#if defined(__CUDA_ARCH__)
+  reinterpret_cast<int4*>(seq)[k] = make_int4(op, mip, mlen, mip - mpos);
+#else
+  int* q = seq + 4 * k;
+  q[0] = op;
+  q[1] = mip;
+  q[2] = mlen;
+  q[3] = mip - mpos;
+#endif
+}
+
+// Write the k sequences of seq (stored by a lanes' parse) into o, thread t
+// of nt taking sequences t, t + nt, ...: sequence i's literals start where
+// sequence i - 1's match ends (at base for the first), and each writes
+// lz4t_emit_sequence's bytes at its own op.
+LZ4T_HD void lz4t_seq_emit(const uint8_t* c, uint8_t* o, int OT, int base,
+                           const int* seq, int k, int t, int nt) {
+  for (int i = t; i < k; i += nt) {
+    const int* q = seq + 4 * i;
+    const int anchor = i ? q[-3] + q[-2] : base;
+    lz4t_emit_sequence(c, o, OT, q[0], anchor, q[1], q[1] - q[3], q[2]);
+  }
+}
+
+// Offset from the search's start of its attempt cnt: the sum of the skip
+// steps 1 + (k >> 6) over k < cnt, which for cnt = 64a + b is
+// cnt + 32a(a - 1) + ab.
+LZ4T_HD int lz4t_skip_offset(int cnt) {
+  const int a = cnt >> LZ4T_SKIP_STRENGTH, b = cnt & 63;
+  return cnt + 32 * a * (a - 1) + a * b;
+}
+
+// The forward match length past sip + 4 that the words at +4 and +8 show
+// (u at sip, x at the candidate), capped at lim; bit 16 set when all eight
+// bytes agree (the extension goes on past them).
+LZ4T_HD int lz4t_fwd_words(const uint32_t* u, const uint32_t* x, int lim) {
+  const int f4 = lz4t_ctz(x[1] ^ u[1]) >> 3;  // 4 when the words agree
+  const int fw = f4 + (f4 == 4 ? lz4t_ctz(x[2] ^ u[2]) >> 3 : 0);
+  return lz4t_min(fw, lim) | (fw == 8) << 16;
+}
+
+// The greedy parse of one row by the 32 lanes of a warp (K2a, K2b): the
+// bytes of lz4t_encode_row. w is the row as u32 words, DT = base + N + 8
+// bytes plus the word after them (n block bytes at base, zero after the
+// block's N); OT = CAP output bytes; tab: the 2^14-entry position table,
+// zeroed and preloaded with the window; own: 2^14 bytes of scratch (any
+// contents). The sequences go to seq as (op, mip, mlen, mip - mpos), each
+// at the output position op where lz4t_emit_sequence would write it, the
+// final literals last as (op, end, 0, 0); lz4t_seq_emit writes them.
+// Returns their count.
+//
+// Why the lanes give the serial parse's bytes: positions enter the table
+// exactly once each and in increasing order. The window preload inserts
+// first, first + wstride, ... below base; a search inserts each position
+// it scans; after a match only nip - 2 is inserted, where nip - 2 >= sip +
+// 2 for the sip that found the match (mlen >= 4 + back), and the next
+// search starts at nip. So the serial scan's candidate at sip is the
+// newest inserted position of sip's bucket below sip.
+//
+// Most searches end at their first attempts: a sequence of text or
+// records usually starts where the last one ended (on the main path's 64
+// KiB rows ~74% of the searches match at attempt 0, ~12% at attempt 1,
+// ~4% at attempt 2). The warp runs attempts 0 .. LZ4T_SCALAR_TRIES - 1 as
+// scalar code, every lane on the same broadcast words, so each costs one
+// thread's chain and no cross-lane step; every lane stores the same slot
+// value, so each lane's own later loads see it without a __syncwarp. Only
+// when they fail do the lanes scan: a step takes the 32 attempts cnt0 ..
+// cnt0 + 31 (cnt restarts at 0 for every search), lane i attempt cnt0 + i
+// at ip + lz4t_skip_offset(cnt0 + i); lanes past mflimit sit out. If
+// attempts 0 .. k - 1 find nothing, the serial scan has inserted all of
+// them when it reaches attempt k, so k's candidate is the newest lower
+// lane of the step in its bucket (__match_any_sync on the hash, when a
+// byte table shows two live lanes in one bucket), else the slot as the
+// step found it. Validity is lz4t_encode_row's (cd >= first,
+// sip - cd <= 65535, the word at cd equals the word at sip), and the first
+// valid lane (a ballot) is the serial scan's stop, with the same
+// candidate. The step inserts lanes 0 .. f, f that lane, or every live
+// lane when none found one: each bucket's newest inserted lane writes its
+// slot, after every lane has read (__syncwarp). The post-match insert of
+// nip - 2 is again scalar, before the next search reads; the next
+// search's first words are read beside it.
+//
+// The words at +4 and +8 of the match and its candidate give the forward
+// length inline, and one byte pair the first backward byte. Past those,
+// backward extension compares 32 byte pairs per step and forward
+// extension 32 word pairs (128 bytes), each taking the ballot's first
+// mismatch, matchlimit or anchor / first: the serial loops' lengths. The
+// parse emits nothing: it keeps the output position op by the emit's
+// arithmetic (the room guard, overflow and the final literals' two guards)
+// and stores each sequence with its op. Words come from the u32-aligned
+// row by aligned loads and funnel shifts: a position at most mflimit, or a
+// stored one (at most nip - 2 <= end - 7, or below base), reads words
+// inside the row or the one word after it, which the shift drops; a lane
+// past mflimit, whose reads decide nothing, reads at DT - 12 at most.
+#define LZ4T_SCALAR_TRIES 3
+
+LZ4T_HD int lz4t_encode_row_lanes(const uint32_t* w, int DT, int base,
+                                  int first, int n, int OT, uint32_t* tab,
+                                  uint8_t* own, int* seq, int* total_out,
+                                  int* ok_out) {
+  const uint8_t* c = reinterpret_cast<const uint8_t*>(w);
+  const int end = base + n;
+  const int mflimit = end - 12;
+  const int matchlimit = end - 5;
+  const int out_limit = OT - 16;
+  const int clip = DT - 4;
+  const bool lead = lz4t_lead();
+  int ip = base, anchor = base, op = 0, nseq = 0;
+  int overflow = n < 0;
+  uint32_t u0[3];  // the words at sip, sip + 4 and sip + 8
+  lz4t_rd32w3(w, lz4t_min(ip, clip - 8), u0);
+  while (ip <= mflimit && !overflow) {
+    // the scalar attempts (cnt < 64: one byte apart)
+    int sip = ip, cand, found, cnt = 0;
+    uint32_t x0[3];
+    for (;;) {
+      const uint32_t h = lz4t_hash(u0[0]);
+      cand = (int)tab[h] - 1;
+      lz4t_rd32w3(w, lz4t_max(cand, 0), x0);
+      tab[h] = (uint32_t)(sip + 1);
+      found = (cand >= first) & (sip - cand <= LZ4T_MAX_DISTANCE) &
+              (x0[0] == u0[0]);
+      if (found | (++cnt == LZ4T_SCALAR_TRIES) | (sip == mflimit)) break;
+      lz4t_rd32w3(w, ++sip, u0);
+    }
+    int fm;
+    if (found) {
+      fm = lz4t_fwd_words(u0, x0, matchlimit - (sip + 4)) |
+           ((sip > anchor) & (cand > first) &
+            (c[lz4t_max(sip - 1, 0)] == c[lz4t_max(cand - 1, 0)])) << 17;
+    } else {
+      if (sip == mflimit) break;  // the search ends past mflimit
+      uint32_t key[LZ4T_NL], peers[LZ4T_NL];
+      int pos[LZ4T_NL], cd[LZ4T_NL], more[LZ4T_NL], hit[LZ4T_NL];
+      int cnt0 = LZ4T_SCALAR_TRIES, f = -1;
+      for (;;) {
+        uint32_t u[LZ4T_NL][3];
+        // the attempt's position, words and hash, and its slot; a lane
+        // past mflimit takes a key no other lane has
+        lz4t_lanes_out([&](int i) {
+          const int l = lz4t_li(i), p = ip + lz4t_skip_offset(cnt0 + i);
+          pos[l] = p;
+          lz4t_rd32w3(w, lz4t_min(p, clip - 8), u[l]);
+          key[l] =
+              p <= mflimit ? lz4t_hash(u[l][0]) : 0x80000000u | (uint32_t)i;
+          cd[l] = (int)tab[key[l] & ((1u << LZ4T_HASH_LOG) - 1)] - 1;
+        });
+        // the lanes that share a live lane's bucket: __match_any_sync costs
+        // ~10 cycles per distinct key of the warp (~340 for 32, PERF.md), so
+        // each live lane first writes its number into the byte table own at
+        // its bucket; a lane that reads back another's shares its bucket,
+        // and only then does the warp match its keys
+        lz4t_lanes_store([&](int i) {
+          const int l = lz4t_li(i);
+          if (pos[l] <= mflimit) own[key[l]] = (uint8_t)i;
+        });
+        if (lz4t_ballot([&](int i) {
+              const int l = lz4t_li(i);
+              return pos[l] <= mflimit && own[key[l]] != i;
+            }))
+          lz4t_match_any(key, peers);
+        else
+          lz4t_lanes_out([&](int i) { peers[lz4t_li(i)] = 1u << i; });
+        // the candidate (the newest lower lane of the bucket, else the
+        // slot), its validity and its first extension bytes: backward one
+        // byte, forward the words' length
+        lz4t_lanes_out([&](int i) {
+          const int l = lz4t_li(i), p = pos[l];
+          const uint32_t m = peers[l] & ((1u << i) - 1);
+          if (m) cd[l] = ip + lz4t_skip_offset(cnt0 + lz4t_fls(m));
+          uint32_t x[3];
+          lz4t_rd32w3(w, lz4t_max(cd[l], 0), x);
+          hit[l] = (p <= mflimit) & (cd[l] >= first) &
+                   (p - cd[l] <= LZ4T_MAX_DISTANCE) & (x[0] == u[l][0]);
+          const int b1 =
+              (p > anchor) & (cd[l] > first) &
+              (c[lz4t_max(lz4t_min(p, clip - 8) - 1, 0)] ==
+               c[lz4t_max(cd[l] - 1, 0)]);
+          more[l] = lz4t_fwd_words(u[l], x, matchlimit - (p + 4)) | b1 << 17;
+        });
+        const uint32_t hits =
+            lz4t_ballot([&](int i) { return hit[lz4t_li(i)]; });
+        // inserted: lanes 0 .. f, or every live one when none found; the
+        // newest inserted lane of each bucket writes its slot
+        const uint32_t ins = hits ? (2u << lz4t_ffs(hits)) - 1 : ~0u;
+        lz4t_lanes_store([&](int i) {
+          const int l = lz4t_li(i);
+          if (pos[l] <= mflimit && (ins >> i & 1) &&
+              !((peers[l] & ins) >> i >> 1))
+            tab[key[l]] = (uint32_t)(pos[l] + 1);
+        });
+        if (hits) {
+          f = lz4t_ffs(hits);
+          break;
+        }
+        // the search goes on, or ends past mflimit as the serial scan's
+        if (ip + lz4t_skip_offset(cnt0 + LZ4T_LANES - 1) > mflimit) break;
+        cnt0 += LZ4T_LANES;
+      }
+      if (f < 0) break;
+      sip = ip + lz4t_skip_offset(cnt0 + f);
+      cand = lz4t_lane_get(cd, f);
+      fm = lz4t_lane_get(more, f);
+    }
+    int back = fm >> 17 & 1, fwd = fm & 0xFFFF;
+    if (fm >> 16) {
+      // backward extension past its first byte, 32 byte pairs per step
+      for (int go = back; go; back += LZ4T_LANES) {
+        const uint32_t m = lz4t_ballot([&](int i) {
+          const int k = back + i + 1;
+          return !(sip - k >= anchor && cand - k >= first &&
+                   c[sip - k] == c[cand - k]);
+        });
+        if (m) {
+          back += lz4t_ffs(m);
+          break;
+        }
+      }
+      // forward extension past the words' bytes, 32 word pairs per step
+      for (int go = fm >> 16 & 1; go; fwd += 4 * LZ4T_LANES) {
+        int eq[LZ4T_NL];
+        const uint32_t m = lz4t_ballot([&](int i) {
+          const int a = sip + 4 + fwd + 4 * i;
+          const int lim = matchlimit - a;
+          int k = 0;
+          if (lim > 0)
+            k = lz4t_min(lz4t_ctz(lz4t_rd32w(w, a) ^
+                                  lz4t_rd32w(w, cand + 4 + fwd + 4 * i)) >>
+                             3,
+                         lim);
+          eq[lz4t_li(i)] = k;
+          return k < 4;
+        });
+        if (m) {
+          const int g = lz4t_ffs(m);
+          fwd += 4 * g + lz4t_lane_get(eq, g);
+          break;
+        }
+      }
+    }
+    const int mip = sip - back, mlen = 4 + back + fwd;
+    const int nip = mip + mlen;
+    const int lit = mip - anchor;
+    // the emit's output position; the room guard refuses the sequence with
+    // op = OT
+    const int refused = op + lit + (lit >> 8) + (mlen >> 8) + 32 > OT;
+    if (lead && !refused) lz4t_seq_put(seq, nseq, op, mip, mlen, cand - back);
+    const int nb = lz4t_seq_bytes(lit, mlen);
+    nseq += !refused;
+    op = refused ? OT : op + nb;
+    // the next search's first words, and the insert of nip - 2 (scalar, as
+    // the attempts' inserts)
+    lz4t_rd32w3(w, lz4t_min(nip, clip - 8), u0);
+    tab[lz4t_hash(lz4t_rd32w(w, nip - 2))] = (uint32_t)(nip - 1);
+    ip = nip;
+    anchor = nip;
+    overflow = op > out_limit;
+  }
+  const int rest = end - anchor;
+  if (overflow || op + rest + rest / 255 + 16 > OT ||
+      op + rest + (rest >> 8) + 32 > OT) {
+    op = OT;
+  } else {
+    if (lead) lz4t_seq_put(seq, nseq, op, end, 0, end);
+    nseq++;
+    op += lz4t_seq_bytes(rest, 0);
+  }
+  *total_out = op;
+  *ok_out = (op < n) && !overflow;
+  return nseq;
 }

@@ -114,7 +114,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  lz4t_mid_emit(c, out + (size_t)r * CAP, CAP, D, seq, *count, threadIdx.x,
+  lz4t_seq_emit(c, out + (size_t)r * CAP, CAP, D, seq, *count, threadIdx.x,
                 kThreads);
 }
 

@@ -61,15 +61,15 @@
 // serial loops' lengths. The parse emits nothing: it keeps the output
 // position op by the emit's arithmetic (room guard, overflow and the
 // final literals as lz4t_encode_mid_row) and stores each sequence with its
-// op, and lz4t_mid_emit writes them afterwards, all at once, wherever the
-// row's total is below the overflow sentinel OT (ok or not: the large-block
-// path stitches a chunk that did not shrink). The words come
-// from the u32-aligned row by aligned loads and funnel shifts; a word read
-// at DT - 4 reads one word past the row, which its shift drops.
+// op, and lz4t_seq_emit (lz4_encode.cuh) writes them afterwards, all at
+// once, wherever the row's total is below the overflow sentinel OT (ok or
+// not: the large-block path stitches a chunk that did not shrink). The
+// words come from the u32-aligned row by aligned loads and funnel shifts;
+// a word read at DT - 4 reads one word past the row, which its shift
+// drops.
 #pragma once
 
 #include "lz4_encode.cuh"
-#include "lz4_lanes.cuh"
 
 #define LZ4T_MID_HASH_LOG 13
 #define LZ4T_MID_TAB (1 << LZ4T_MID_HASH_LOG)
@@ -211,34 +211,6 @@ LZ4T_HD void lz4t_encode_mid_row(const uint8_t* c, int DT, int base,
 // the parse on the 32 lanes of a warp (K2c, K2d; see the file comment)
 // ---------------------------------------------------------------------------
 
-// the little-endian words at bytes p, p + 4 and p + 8 of the u32-aligned
-// row w: four aligned loads and three funnel shifts (w holds the words up
-// to (p + 15) >> 2)
-LZ4T_HD void lz4t_rd32w3(const uint32_t* w, int p, uint32_t* x) {
-  const uint32_t* q = w + (p >> 2);
-  const uint32_t a = q[0], b = q[1], c = q[2], d = q[3];
-  const int sh = (p & 3) * 8;
-#if defined(__CUDA_ARCH__)
-  x[0] = __funnelshift_r(a, b, sh);
-  x[1] = __funnelshift_r(b, c, sh);
-  x[2] = __funnelshift_r(c, d, sh);
-#else
-  x[0] = (uint32_t)((((uint64_t)b << 32) | a) >> sh);
-  x[1] = (uint32_t)((((uint64_t)c << 32) | b) >> sh);
-  x[2] = (uint32_t)((((uint64_t)d << 32) | c) >> sh);
-#endif
-}
-
-// the little-endian word at byte p of w (w holds the word after p >> 2)
-LZ4T_HD uint32_t lz4t_rd32w(const uint32_t* w, int p) {
-  const uint32_t lo = w[p >> 2], hi = w[(p >> 2) + 1];
-#if defined(__CUDA_ARCH__)
-  return __funnelshift_r(lo, hi, (p & 3) * 8);
-#else
-  return (uint32_t)((((uint64_t)hi << 32) | lo) >> ((p & 3) * 8));
-#endif
-}
-
 // slot entry j's table (j < kDepth)
 template <int kDepth>
 LZ4T_HD uint32_t* lz4t_mid_tab(const lz4t_mid_tabs& t, int j) {
@@ -280,49 +252,13 @@ LZ4T_HD uint32_t lz4t_mid_key(uint32_t u, int live, int lane) {
   return live ? lz4t_hash_mid(u) : 0x80000000u | (uint32_t)lane;
 }
 
-// The output bytes of a sequence that the room guard lets through:
-// lz4t_emit_sequence's count, literals lit, match mlen (0: final
-// literals).
-LZ4T_HD int lz4t_seq_bytes(int lit, int mlen) {
-  int b = 1 + lit + (lit >= 15 ? (lit - 15) / 255 + 1 : 0);
-  if (mlen > 0) b += 2 + (mlen >= 19 ? (mlen - 19) / 255 + 1 : 0);
-  return b;
-}
-
-// sequence k of seq: (op, mip, mlen, mip - mpos)
-LZ4T_HD void lz4t_seq_put(int* seq, int k, int op, int mip, int mlen,
-                          int mpos) {
-#if defined(__CUDA_ARCH__)
-  reinterpret_cast<int4*>(seq)[k] = make_int4(op, mip, mlen, mip - mpos);
-#else
-  int* q = seq + 4 * k;
-  q[0] = op;
-  q[1] = mip;
-  q[2] = mlen;
-  q[3] = mip - mpos;
-#endif
-}
-
-// Write the k sequences of seq (lz4t_encode_mid_row_lanes) into o, thread
-// t of nt taking sequences t, t + nt, ...: sequence i's literals start
-// where sequence i - 1's match ends (at base for the first), and each
-// writes lz4t_emit_sequence's bytes at its own op.
-LZ4T_HD void lz4t_mid_emit(const uint8_t* c, uint8_t* o, int OT, int base,
-                           const int* seq, int k, int t, int nt) {
-  for (int i = t; i < k; i += nt) {
-    const int* q = seq + 4 * i;
-    const int anchor = i ? q[-3] + q[-2] : base;
-    lz4t_emit_sequence(c, o, OT, q[0], anchor, q[1], q[1] - q[3], q[2]);
-  }
-}
-
 // The parse of one row by the 32 lanes of a warp: w, the row as u32
 // words, DT = base + N + 8 bytes plus the word after them (n block bytes
 // at base, zero after the block's N); OT = CAP output bytes; t: kDepth
 // 2^13-entry tables, zeroed and preloaded with the window. The sequences
 // go to seq as (op, mip, mlen, mip - mpos), each at the output position
 // op where lz4t_emit_sequence would write it, the final literals last as
-// (op, end, 0, 0); lz4t_mid_emit writes them. Returns their count.
+// (op, end, 0, 0); lz4t_seq_emit writes them. Returns their count.
 template <int kDepth>
 LZ4T_HD int lz4t_encode_mid_row_lanes(const uint32_t* w, int DT, int base,
                                       int first, int n, int OT,

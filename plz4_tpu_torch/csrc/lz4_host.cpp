@@ -3,7 +3,7 @@
 // lz4_decode_window.cuh, lz4_decode_wide.cuh, xxh32.cuh), compiled with g++
 // so that the CPU tests can run the kernels' own logic on machines without
 // a GPU. Same layouts and results as the kernels' launchers. The bodies
-// that one warp runs together (K2c, K2d, K4, K5) run their lanes' steps as
+// that one warp runs together (K2a-K2d, K4, K5) run their lanes' steps as
 // loops over lanes 0-31 here (lz4_lanes.cuh).
 #include <string.h>
 
@@ -16,26 +16,6 @@
 #include "lz4_encode_deep.cuh"
 #include "lz4_encode_mid.cuh"
 #include "xxh32.cuh"
-
-// K2a: lz4_encode.cu
-extern "C" void lz4t_host_encode(const uint8_t* data, const int32_t* lens,
-                                 uint8_t* out, int32_t* totals, uint8_t* ok,
-                                 int B, int N, int CAP) {
-  std::vector<uint32_t> tab(1 << LZ4T_HASH_LOG), vtab(1 << LZ4T_HASH_LOG);
-  std::vector<uint8_t> row(N + 8);
-  for (int b = 0; b < B; b++) {
-    memset(tab.data(), 0, tab.size() * 4);
-    memset(vtab.data(), 0, vtab.size() * 4);
-    memset(row.data(), 0, row.size());
-    memcpy(row.data(), data + (size_t)b * N, N);
-    int total, okv;
-    lz4t_encode_row<true>(row.data(), N + 8, 0, 0, lens[b],
-                          out + (size_t)b * CAP, CAP, tab.data(), vtab.data(),
-                          &total, &okv);
-    totals[b] = total;
-    ok[b] = okv != 0;
-  }
-}
 
 // Stage row r of a window launch: [the last Dc bytes of its D-byte window |
 // block | 8 zero bytes]. Row r takes row r - 1 as its window when r % K > 0,
@@ -53,6 +33,50 @@ static int stage_window_row(std::vector<uint8_t>& row, const uint8_t* data,
   return lz4t_window_first(wlens, r, Dc);
 }
 
+// K2a (D = 0, lz4_encode.cu) and K2b (lz4_encode_window.cu): the lanes'
+// parse on a u32 copy of the row with one word after it, then the emit of
+// its sequences wherever total < CAP; serial runs the serial body
+// (lz4t_encode_row, K6b's parse with the room guard) instead.
+static void encode_greedy(const uint8_t* data, const int32_t* lens,
+                          const uint8_t* win, const int32_t* wlens,
+                          uint8_t* out, int32_t* totals, uint8_t* ok, int R,
+                          int N, int D, int K, int wstride, int CAP,
+                          int serial) {
+  const int DT = D + N + 8;
+  std::vector<uint32_t> tab(1 << LZ4T_HASH_LOG), w(DT / 4 + 1);
+  std::vector<uint8_t> own(1 << LZ4T_HASH_LOG);
+  std::vector<int> seq(4 * (N / 4 + 2));
+  std::vector<uint8_t> row;
+  for (int r = 0; r < R; r++) {
+    memset(tab.data(), 0, tab.size() * 4);
+    const int first = stage_window_row(row, data, win, wlens, r, N, D, K, D);
+    lz4t_window_preload(row.data(), D, first, wstride, tab.data());
+    int total, okv;
+    uint8_t* o = out + (size_t)r * CAP;
+    if (serial) {
+      lz4t_encode_row<false>(row.data(), DT, D, first, lens[r], o, CAP,
+                             tab.data(), nullptr, &total, &okv);
+    } else {
+      memcpy(w.data(), row.data(), DT);
+      const int k = lz4t_encode_row_lanes(w.data(), DT, D, first, lens[r],
+                                          CAP, tab.data(), own.data(),
+                                          seq.data(), &total, &okv);
+      if (total < CAP)
+        lz4t_seq_emit(row.data(), o, CAP, D, seq.data(), k, 0, 1);
+    }
+    totals[r] = total;
+    ok[r] = okv != 0;
+  }
+}
+
+// K2a: lz4_encode.cu
+extern "C" void lz4t_host_encode(const uint8_t* data, const int32_t* lens,
+                                 uint8_t* out, int32_t* totals, uint8_t* ok,
+                                 int B, int N, int CAP) {
+  encode_greedy(data, lens, nullptr, nullptr, out, totals, ok, B, N, 0, 1, 1,
+                CAP, 0);
+}
+
 // K2b: lz4_encode_window.cu
 extern "C" void lz4t_host_encode_window(const uint8_t* data,
                                         const int32_t* lens,
@@ -61,19 +85,21 @@ extern "C" void lz4t_host_encode_window(const uint8_t* data,
                                         int32_t* totals, uint8_t* ok, int R,
                                         int N, int D, int K, int wstride,
                                         int CAP) {
-  std::vector<uint32_t> tab(1 << LZ4T_HASH_LOG);
-  std::vector<uint8_t> row;
-  for (int r = 0; r < R; r++) {
-    memset(tab.data(), 0, tab.size() * 4);
-    const int first = stage_window_row(row, data, win, wlens, r, N, D, K, D);
-    lz4t_window_preload(row.data(), D, first, wstride, tab.data());
-    int total, okv;
-    lz4t_encode_row<false>(row.data(), D + N + 8, D, first, lens[r],
-                           out + (size_t)r * CAP, CAP, tab.data(), nullptr,
-                           &total, &okv);
-    totals[r] = total;
-    ok[r] = okv != 0;
-  }
+  encode_greedy(data, lens, win, wlens, out, totals, ok, R, N, D, K, wstride,
+                CAP, 0);
+}
+
+// The rows of lz4t_host_encode_window (D = 0: lz4t_host_encode's) through
+// the serial body, for the test that holds the two bodies to each other.
+extern "C" void lz4t_host_encode_serial(const uint8_t* data,
+                                        const int32_t* lens,
+                                        const uint8_t* win,
+                                        const int32_t* wlens, uint8_t* out,
+                                        int32_t* totals, uint8_t* ok, int R,
+                                        int N, int D, int K, int wstride,
+                                        int CAP) {
+  encode_greedy(data, lens, win, wlens, out, totals, ok, R, N, D, K, wstride,
+                CAP, 1);
 }
 
 // K2c (depth 2) and K2d (depth 4): lz4_encode_mid.cu, the lanes' parse on
@@ -99,7 +125,7 @@ static void encode_mid_row(const std::vector<uint8_t>& row,
   const int k = lz4t_encode_mid_row_lanes<kDepth>(w.data(), DT, D, first, n,
                                                   CAP, t, seq.data(), total,
                                                   okv);
-  if (*total < CAP) lz4t_mid_emit(row.data(), o, CAP, D, seq.data(), k, 0, 1);
+  if (*total < CAP) lz4t_seq_emit(row.data(), o, CAP, D, seq.data(), k, 0, 1);
 }
 
 static void encode_mid(const uint8_t* data, const int32_t* lens,

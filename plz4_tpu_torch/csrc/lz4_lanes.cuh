@@ -1,5 +1,5 @@
 // Warp-cooperative steps of the row bodies that one warp runs together
-// (K2c/K2d's parse, K4's parse and chain build, K5's record decode). All 32 lanes of the
+// (K2a-K2d's parse, K4's parse and chain build, K5's record decode). All 32 lanes of the
 // warp run the caller's scalar control flow in step, reading the same
 // shared-memory words as broadcasts, and split only the steps below among
 // themselves, lane i taking element i of each group of 32. The g++ build
@@ -33,6 +33,15 @@ LZ4T_HD int lz4t_ffs(uint32_t m) {
   return __ffs(m) - 1;
 #else
   return __builtin_ctz(m);
+#endif
+}
+
+// index of the lowest set bit, 32 for 0
+LZ4T_HD int lz4t_ctz(uint32_t m) {
+#if defined(__CUDA_ARCH__)
+  return __clz(__brev(m));
+#else
+  return m ? __builtin_ctz(m) : 32;
 #endif
 }
 
@@ -105,6 +114,16 @@ LZ4T_HD void lz4t_lanes_copy(L load, S store) {
   for (int i = 0; i < LZ4T_LANES; i++) v[i] = load(i);
   for (int i = 0; i < LZ4T_LANES; i++)
     if (v[i] >= 0) store(i, v[i]);
+#endif
+}
+
+// whether this thread runs the warp's lane 0 (on the host, where a lane
+// loop runs the scalar code once, always)
+LZ4T_HD bool lz4t_lead() {
+#if defined(__CUDA_ARCH__)
+  return (threadIdx.x & 31) == 0;
+#else
+  return true;
 #endif
 }
 

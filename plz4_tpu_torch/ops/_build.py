@@ -26,9 +26,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel library -> {C entry point: (device pointers, ints)}; every entry
 # point also takes the CUDA stream last and returns a cudaError_t
 KERNELS = {
-    "lz4_encode": {"lz4t_launch": (5, 3)},            # K2a
+    "lz4_encode": {"lz4t_launch": (6, 3)},            # K2a
     "lz4_decode": {"lz4t_launch": (5, 3)},            # K1
-    "lz4_encode_window": {"lz4t_launch": (7, 6)},     # K2b
+    "lz4_encode_window": {"lz4t_launch": (8, 6)},     # K2b
     "lz4_encode_mid": {"lz4t_launch": (9, 7)},        # K2c, K2d
     "lz4_encode_deep": {"lz4t_launch": (9, 8)},       # K4
     "lz4_decode_window": {"lz4t_launch_dict": (6, 5),  # K3
@@ -42,6 +42,7 @@ KERNELS = {
 HOST_FNS = {
     "lz4t_host_encode": (5, 3),
     "lz4t_host_encode_window": (7, 6),
+    "lz4t_host_encode_serial": (7, 6),
     "lz4t_host_encode_mid": (7, 7),
     "lz4t_host_encode_mid_serial": (7, 6),
     "lz4t_host_encode_deep": (7, 8),

@@ -7,8 +7,11 @@ CUDA kernels csrc/lz4_encode.cu and csrc/lz4_encode_window.cu on CUDA
 tensors and the plain version on CPU tensors. All are byte-exact with the
 JAX package's Pallas kernel (encode_pallas.encode_batch_pallas and
 encode_batch_pallas_dict): the same ok and total per row, and the same
-stream bytes [0, total) where ok holds. An incompressible row comes back
-with ok False, and the frame layer stores it raw.
+stream bytes [0, total) wherever total < CAP, ok or not (the large-block
+path stitches the stream of a chunk that did not shrink). An
+incompressible row comes back with ok False, and the frame layer stores it
+raw. The kernels parse each row with one warp into sequences (a device
+scratch, seq_scratch) and then write them with the whole thread block.
 
 Rows go up to the 4 MiB LZ4 block. Those that the Pallas wrappers' byte-wide
 budget refuses (bw_fits: over about 96 KiB plain, 67 KiB after a 64 KiB
@@ -105,6 +108,13 @@ def empty_outputs(R: int, N: int, device: torch.device):
             torch.empty((R,), dtype=torch.bool, device=device))
 
 
+def seq_scratch(R: int, N: int, device: torch.device) -> torch.Tensor:
+    """The device scratch of an encode launch whose warp parses each row
+    into sequences (K2a-K2d): four int32 per sequence, at most N / 4 per row
+    of N bytes, and one record more that holds their count."""
+    return torch.empty((R, N // 4 + 2, 4), dtype=torch.int32, device=device)
+
+
 def encode_batch(data: torch.Tensor, lens: torch.Tensor):
     """data (B, N) uint8 zero-padded rows with N % 4 == 0 and N <= 4 MiB,
     lens (B,) int32 -> (out (B, CAP) uint8, totals (B,) int32, ok (B,)
@@ -123,9 +133,10 @@ def encode_batch(data: torch.Tensor, lens: torch.Tensor):
     if B:
         with torch.cuda.device(data.device):
             stream = torch.cuda.current_stream(data.device).cuda_stream
+            seqs = seq_scratch(B, N, data.device)
             _build.launch("lz4_encode",
                           (data.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                           totals.data_ptr(), ok.data_ptr()),
+                           totals.data_ptr(), ok.data_ptr(), seqs.data_ptr()),
                           (B, N, out.shape[1]), stream)
         launches += 1
     return out, totals, ok
@@ -163,10 +174,12 @@ def encode_batch_window(data: torch.Tensor, lens: torch.Tensor,
     if R:
         with torch.cuda.device(data.device):
             stream = torch.cuda.current_stream(data.device).cuda_stream
+            seqs = seq_scratch(R, N, data.device)
             _build.launch("lz4_encode_window",
                           (data.data_ptr(), lens.data_ptr(),
                            windows.data_ptr(), wlens.data_ptr(),
-                           out.data_ptr(), totals.data_ptr(), ok.data_ptr()),
+                           out.data_ptr(), totals.data_ptr(), ok.data_ptr(),
+                           seqs.data_ptr()),
                           (R, N, D, chunks, wstride, out.shape[1]), stream)
         window_launches += 1
     return out, totals, ok

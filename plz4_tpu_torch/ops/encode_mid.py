@@ -25,7 +25,7 @@ from . import _build
 from .decode import MAX_SMEM
 from .encode import (MAX_DISTANCE, MID_HASH_LOG, _common, _emit, _finish,
                      _words, bw_fits, check_rows, check_windows,
-                     empty_outputs, out_width, plain_batch)
+                     empty_outputs, out_width, plain_batch, seq_scratch)
 
 launches = 0  # K2c/K2d launches by encode_batch_mid
 window_launches = 0  # K2c/K2d launches by encode_batch_mid_window
@@ -49,10 +49,7 @@ def _launch(data, lens, windows, wlens, D: int, depth4: bool, wstride: int,
     if tables_spill(N, D, depth4):
         scratch = torch.empty((R, 2 << MID_HASH_LOG), dtype=torch.int32,
                               device=data.device)
-    # the parse's sequences, four ints each, at most N / 4 per row; the
-    # last record holds their count
-    seqs = torch.empty((R, N // 4 + 2, 4), dtype=torch.int32,
-                       device=data.device)
+    seqs = seq_scratch(R, N, data.device)
     win_ptr = wl_ptr = 0
     if D:
         windows, wlens = windows.contiguous(), wlens.contiguous()

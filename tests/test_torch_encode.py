@@ -142,3 +142,58 @@ def test_encode_batch_rejects_bad_rows(shape, err):
     with pytest.raises(ValueError, match=err):
         encode.encode_batch(torch.zeros(shape, dtype=torch.uint8),
                             torch.zeros((shape[0],), dtype=torch.int32))
+
+
+def _host_encode(lib, rows, lens, serial=False):
+    """K2a's row body built with g++: the lanes' body, or with serial the
+    serial body (lz4t_encode_row) on the same rows."""
+    B, width = rows.shape
+    CAP = encode.out_width(width)
+    out = np.zeros((B, CAP), np.uint8)
+    tot = np.zeros(B, np.int32)
+    ok = np.zeros(B, np.uint8)
+    if serial:
+        lib.lz4t_host_encode_serial(rows.ctypes.data, lens.ctypes.data, 0, 0,
+                                    out.ctypes.data, tot.ctypes.data,
+                                    ok.ctypes.data, B, width, 0, 1, 1, CAP)
+    else:
+        lib.lz4t_host_encode(rows.ctypes.data, lens.ctypes.data,
+                             out.ctypes.data, tot.ctypes.data, ok.ctypes.data,
+                             B, width, CAP)
+    return out, tot, ok
+
+
+@functools.lru_cache(maxsize=None)
+def _host_bodies():
+    """The lanes' and the serial body's results on the cached batch."""
+    rows, lens, _, _ = _full()
+    lib = _build.load_host()
+    return _host_encode(lib, rows, lens), _host_encode(lib, rows, lens,
+                                                       serial=True)
+
+
+@pytest.mark.parametrize("name", list(PAYLOADS))
+def test_serial_and_lanes_bodies_agree(name, host_lib):
+    """The serial row body and the lanes' body give the same ok and total,
+    and the same bytes wherever total < CAP."""
+    (lo, lt, lk), (so, st, sk) = _host_bodies()
+    i = list(PAYLOADS).index(name)
+    assert (int(lt[i]), bool(lk[i])) == (int(st[i]), bool(sk[i]))
+    if st[i] < so.shape[1]:
+        assert lo[i, :st[i]].tobytes() == so[i, :st[i]].tobytes()
+
+
+@pytest.mark.parametrize("name", list(PAYLOADS))
+def test_streams_match_pallas_wherever_total_fits(name, host_lib):
+    """A row whose total is below the overflow sentinel CAP carries the
+    Pallas kernel's bytes [0, total), ok or not (random64k does not shrink,
+    yet has a stream). Held for the lanes' body and the plain version."""
+    _, _, (ro, rt, _), got = _full()
+    lanes = _host_bodies()[0]
+    i = list(PAYLOADS).index(name)
+    if name == "random64k":
+        assert rt[i] < ro.shape[1] and not got[2][i]
+    for out, tot, _ in (lanes, got):
+        assert int(tot[i]) == int(rt[i])
+        if rt[i] < ro.shape[1]:
+            assert out[i, :rt[i]].tobytes() == ro[i, :rt[i]].tobytes()

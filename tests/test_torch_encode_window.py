@@ -110,16 +110,20 @@ def host_lib():
     return _build.load_host()
 
 
-def _host_encode(lib, rows, lens, wins, wlens, wstride, chunks=1):
+def _host_encode(lib, rows, lens, wins, wlens, wstride, chunks=1,
+                 serial=False):
+    """K2b's row body built with g++: the lanes' body, or with serial the
+    serial body (lz4t_encode_row) on the same rows."""
     R = rows.shape[0]
     CAP = encode.out_width(N)
     out = np.zeros((R, CAP), np.uint8)
     tot = np.zeros(R, np.int32)
     ok = np.zeros(R, np.uint8)
-    lib.lz4t_host_encode_window(
-        rows.ctypes.data, lens.ctypes.data, wins.ctypes.data,
-        wlens.ctypes.data, out.ctypes.data, tot.ctypes.data, ok.ctypes.data,
-        R, N, wins.shape[1], chunks, wstride, CAP)
+    fn = lib.lz4t_host_encode_serial if serial else \
+        lib.lz4t_host_encode_window
+    fn(rows.ctypes.data, lens.ctypes.data, wins.ctypes.data,
+       wlens.ctypes.data, out.ctypes.data, tot.ctypes.data, ok.ctypes.data,
+       R, N, wins.shape[1], chunks, wstride, CAP)
     return out, tot, ok
 
 
@@ -240,3 +244,54 @@ def test_encode_batch_window_rejects_bad_shapes(kw, err):
     with pytest.raises(ValueError, match=err):
         encode.encode_batch_window(data, torch.zeros((2,), dtype=torch.int32),
                                    win, wl, **kw)
+
+
+def _cached(batch: str):
+    """(operands, wstride, chunks, Pallas outputs, plain's) of a cached
+    batch: the window cases at wstride 1 or 2, or the chunk rows."""
+    if batch == "chunks":
+        args, ref, got = _chunks()
+        return args, 2, K, ref, got
+    ws = int(batch[-1])
+    args, ref, got = _full(ws)
+    return args, ws, 1, ref, got
+
+
+@functools.lru_cache(maxsize=None)
+def _host_bodies(batch: str):
+    """The lanes' and the serial body's results on a cached batch."""
+    args, ws, chunks, _, _ = _cached(batch)
+    lib = _build.load_host()
+    return (_host_encode(lib, *args, ws, chunks),
+            _host_encode(lib, *args, ws, chunks, serial=True))
+
+
+def _batch_rows():
+    return ([pytest.param(b, i, id=f"{b}-{n}") for b in ("wstride1",
+                                                          "wstride2")
+             for i, n in enumerate(NAMES)]
+            + [pytest.param("chunks", r, id=f"chunks-{r}")
+               for r in range(2 * K)])
+
+
+@pytest.mark.parametrize("batch,i", _batch_rows())
+def test_serial_and_lanes_bodies_agree(batch, i, host_lib):
+    """The serial row body and the lanes' body give the same ok and total,
+    and the same bytes wherever total < CAP."""
+    (lo, lt, lk), (so, st, sk) = _host_bodies(batch)
+    assert (int(lt[i]), bool(lk[i])) == (int(st[i]), bool(sk[i]))
+    if st[i] < so.shape[1]:
+        assert lo[i, :st[i]].tobytes() == so[i, :st[i]].tobytes()
+
+
+@pytest.mark.parametrize("batch,i", _batch_rows())
+def test_streams_match_pallas_wherever_total_fits(batch, i, host_lib):
+    """A row whose total is below the overflow sentinel CAP carries the
+    Pallas kernel's bytes [0, total), ok or not: the large-block path
+    stitches the stream of a chunk that did not shrink. Held for the lanes'
+    body and the plain version."""
+    _, _, _, (ro, rt, _), got = _cached(batch)
+    for out, tot, _ in (_host_bodies(batch)[0], got):
+        assert int(tot[i]) == int(rt[i])
+        if rt[i] < ro.shape[1]:
+            assert out[i, :rt[i]].tobytes() == ro[i, :rt[i]].tobytes()

@@ -143,6 +143,62 @@ def test_encode_window_kernel_matches_plain(cuda):
         _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
 
 
+def _fits(plain):
+    """Each row's compared bytes: [0, total) wherever total < CAP, ok or
+    not (the large-block path stitches a chunk that did not shrink)."""
+    return torch.where(plain[1] < plain[0].shape[1], plain[1], 0)
+
+
+@pytest.mark.gpu
+def test_encode_kernels_edge_rows_match_plain(cuda):
+    """K2a on the rows aimed at the greedy parse's steps (a search ending on
+    every lane, at skip strides 1-3 and over 30, crowded buckets, runs,
+    matches to matchlimit, short blocks), and K2b on copies 65,534-65,536
+    bytes back from 64 KiB windows at preload strides 1 and 2."""
+    plain_rows, windowed = corpus.greedy_edge_rows()
+    rows, lens = _rows(list(plain_rows.values()), N)
+    kern = encode.encode_batch(rows.to(cuda), lens.to(cuda))
+    plain = encode.encode_batch_plain(rows, lens)
+    _same_rows(kern, plain, _fits(plain))
+    wrows, wl = _rows([b for b, _, _ in windowed.values()], N)
+    wins = torch.from_numpy(np.stack([np.frombuffer(w, np.uint8)
+                                      for _, w, _ in windowed.values()]))
+    usable = torch.tensor([u for _, _, u in windowed.values()],
+                          dtype=torch.int32)
+    for wstride in (1, 2):
+        kern = encode.encode_batch_window(
+            wrows.to(cuda), wl.to(cuda), wins.to(cuda), usable.to(cuda),
+            wstride)
+        plain = encode.encode_batch_window_plain(wrows, wl, wins, usable,
+                                                 wstride)
+        _same_rows(kern, plain, _fits(plain))
+
+
+@pytest.mark.gpu
+def test_encode_kernels_write_streams_that_do_not_shrink(cuda):
+    """Every row below the overflow sentinel carries the plain version's
+    bytes [0, total), ok or not: K2a on plain rows (a random one among
+    them), K2b on the chunk rows of blocks with a random chunk."""
+    rows, lens = _rows(_payloads(), N)
+    kern = encode.encode_batch(rows.to(cuda), lens.to(cuda))
+    plain = encode.encode_batch_plain(rows, lens)
+    assert bool(((plain[1] < plain[0].shape[1]) & ~plain[2]).any())
+    _same_rows(kern, plain, _fits(plain))
+    a = torch.zeros((8, N), dtype=torch.uint8)
+    ln = torch.zeros((8,), dtype=torch.int32)
+    wl = torch.zeros((8,), dtype=torch.int32)
+    da = torch.zeros((2, N), dtype=torch.uint8)
+    large.stage_chunks([_random_chunk_block()] * 2, [None, b"x" * 1000],
+                       a.numpy().reshape(2, 4, N), ln.numpy().reshape(2, 4),
+                       wl.numpy().reshape(2, 4), da.numpy())
+    kw = dict(wstride=large.CHUNK_WSTRIDE, chunks=4)
+    kern = encode.encode_batch_window(a.to(cuda), ln.to(cuda), da.to(cuda),
+                                      wl.to(cuda), **kw)
+    plain = encode.encode_batch_window_plain(a, ln, da, wl, **kw)
+    assert bool(((plain[1] < plain[0].shape[1]) & ~plain[2]).any())
+    _same_rows(kern, plain, _fits(plain))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("depth4", [False, True], ids=["K2c", "K2d"])
 def test_encode_mid_kernel_matches_plain(cuda, depth4):
@@ -235,7 +291,7 @@ def test_encode_mid_kernel_writes_streams_that_do_not_shrink(cuda, depth4):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("level", [3, 8])
+@pytest.mark.parametrize("level", [1, 3, 8])
 def test_device_frame_with_a_random_chunk_matches_plain_frame(cuda, level):
     """A 4 MiB-block frame whose one block has a random 64 KiB chunk: that
     chunk's literals are stitched into the block as the plain version
