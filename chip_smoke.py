@@ -2,8 +2,11 @@
 """Smoke run of plz4_tpu_torch on one CUDA GPU.
 
 Builds the CUDA kernels from csrc/, holds each kernel against its plain
-version at the main path's shapes, then drives the main paths with
-backend="device" and checks that they went through the kernels:
+version at the main path's shapes (K1 and K3 also on
+corpus.decode_edge_batches: short offsets, rows that wrap their parse's
+ring, clen past the row, streams that pass out_cap), then drives the main
+paths with backend="device" and checks that they went through the
+kernels:
 
   * a 256 MiB LZ4 frame of 64 KiB level-1 blocks (K2a, K1);
   * the same 256 MiB at the default 4 MiB blocks (K2b over 64 KiB chunk
@@ -328,21 +331,24 @@ def main() -> int:
                 streams.append(s)
         return streams
 
-    def dec_both(streams):
-        a, n = rows_of(streams, C)
-        ha, hn = torch.from_numpy(a), torch.from_numpy(n)
+    def dec_rows(ha, hn, cap, what):
         da, dn = ha.to(dev), hn.to(dev)
-        kern = decode.decode_batch(da, dn, BLOCK)
+        kern = decode.decode_batch(da, dn, cap)
         torch.cuda.synchronize()
-        plain, p_ms = host_ms(lambda: decode.decode_batch_plain(ha, hn,
-                                                                BLOCK))
+        plain, p_ms = host_ms(lambda: decode.decode_batch_plain(ha, hn, cap))
         nn = plain[1].numpy()
         check(bool((kern[1].cpu().numpy() == nn).all()
                    and (kern[2].cpu().numpy() == plain[2].numpy()).all()),
-              f"K1 ok/n_out equal plain on {len(streams)} rows")
+              f"K1 ok/n_out equal plain on {what}")
         err = max_err(kern, plain, nn)
-        check(err == 0, f"K1 bytes [0, n_out) equal plain (max abs err {err})")
+        check(err == 0, f"K1 bytes [0, n_out) equal plain on {what} (max abs "
+                        f"err {err})")
         return (da, dn), kern, plain, p_ms, err
+
+    def dec_both(streams):
+        a, n = rows_of(streams, C)
+        return dec_rows(torch.from_numpy(a), torch.from_numpy(n), BLOCK,
+                        f"{len(streams)} rows")
 
     main_streams = streams_of(e_kern, main_rows)
     check(len(main_streams) == ROWS, "K2a compressed every main-path row")
@@ -357,6 +363,13 @@ def main() -> int:
     n_good = len(x_streams) + len(native_streams)
     check(bool(c_ok[:n_good].all()) and not c_ok[n_good:n_good + 4].any(),
           "K1 verdicts: valid streams ok, bad-offset streams refused")
+    # rows aimed at the parse's hand-over and the copy steps: short offsets
+    # at a row's start, rows that wrap the ring of 2,048 sequences 4-8
+    # times, clen past the row's width, streams that pass out_cap
+    edge_batches = corpus.decode_edge_batches()
+    for name, (a, n, cap, _) in edge_batches.items():
+        c_err = max(c_err, dec_rows(torch.from_numpy(a), torch.from_numpy(n),
+                                    cap, f"the {len(n)} {name} rows")[4])
     dec_ms = cuda_ms(lambda: decode.decode_batch(*d_in, BLOCK), 20)
     dec_bound = bound_ms(
         sum(len(s) for s in main_streams) + 4 * ROWS
@@ -482,14 +495,13 @@ def main() -> int:
     # ---- 7. K3 against its plain version --------------------------------
     dbuf = torch.from_numpy(np.frombuffer(dict64, np.uint8).copy())
 
-    def dict_both(streams, what):
-        a, n = rows_of(streams, C)
-        ha, hn = torch.from_numpy(a), torch.from_numpy(n)
-        da, dn, dd = ha.to(dev), hn.to(dev), dbuf.to(dev)
-        kern = decode.decode_batch_dict(da, dn, dd, BLOCK, BLOCK)
+    def dict_rows(ha, hn, hd, cap, what):
+        da, dn, dd = ha.to(dev), hn.to(dev), hd.to(dev)
+        D = hd.shape[0]
+        kern = decode.decode_batch_dict(da, dn, dd, D, cap)
         torch.cuda.synchronize()
         plain, p_ms = host_ms(lambda: decode.decode_batch_dict_plain(
-            ha, hn, dbuf, BLOCK, BLOCK))
+            ha, hn, hd, D, cap))
         nn = plain[1].numpy()
         check(bool((kern[1].cpu().numpy() == nn).all()
                    and (kern[2].cpu().numpy() == plain[2].numpy()).all()),
@@ -498,6 +510,11 @@ def main() -> int:
         check(err == 0, f"K3 bytes [0, n_out) equal plain on {what} (max "
                         f"abs err {err})")
         return (da, dn, dd), kern, plain, p_ms, err
+
+    def dict_both(streams, what):
+        a, n = rows_of(streams, C)
+        return dict_rows(torch.from_numpy(a), torch.from_numpy(n), dbuf,
+                         BLOCK, what)
 
     dict_main = [native.compress(main_data[i * BLOCK:(i + 1) * BLOCK],
                                  level=1, dict_=dict64) for i in range(ROWS)]
@@ -526,6 +543,11 @@ def main() -> int:
     check(bool(x3_plain[0][len(good) - 2, :x3_n[len(good) - 2]].numpy()
                .tobytes() == dict64[-4:] + b"abcd"),
           "K3: a match that ends at the window/block boundary")
+    for name, (a, n, cap, win) in edge_batches.items():
+        x3_err = max(x3_err, dict_rows(
+            torch.from_numpy(a), torch.from_numpy(n),
+            torch.from_numpy(np.frombuffer(win, np.uint8).copy()), cap,
+            f"the {len(n)} {name} rows")[4])
     k3_ms = cuda_ms(lambda: decode.decode_batch_dict(*k3_in, BLOCK, BLOCK),
                     20)
     k3_bound = bound_ms(

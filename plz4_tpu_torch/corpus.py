@@ -366,3 +366,147 @@ def greedy_edge_rows(seed: int = 7) -> tuple[dict, dict]:
     plain.update({k: v for k, v in chain_plain.items()
                   if k.startswith(("period", "to-matchlimit", "short"))})
     return plain, windowed
+
+
+# output positions, offsets and match lengths of decode_edge_batches'
+# short-offset rows
+SHORT_OFFS = tuple(range(1, 65))
+SHORT_MLS = (4, 5, 15, 18, 19, 31, 32, 33, 63, 64, 65, 100, 130)
+SHORT_OPS = (0, 1, 7, 31, 32, 40)
+
+
+def _varint(n: int) -> bytes:
+    """The LZ4 length extension bytes of a length field's remainder n."""
+    return b"\xff" * (n // 255) + bytes([n % 255])
+
+
+def lz4_sequence(lits: bytes, off: int = 0, ml: int = 0) -> bytes:
+    """One LZ4 sequence: its literals, then (ml >= 4) a match of ml bytes
+    at offset off; with ml == 0, a last sequence (literals only)."""
+    L, M = len(lits), max(ml - 4, 0)
+    out = bytearray([(min(L, 15) << 4) | (min(M, 15) if ml else 0)])
+    if L >= 15:
+        out += _varint(L - 15)
+    out += lits
+    if ml:
+        out += bytes([off & 255, off >> 8])
+        if M >= 15:
+            out += _varint(M - 15)
+    return bytes(out)
+
+
+def decode_edge_batches(seed: int = 8) -> dict:
+    """Row batches aimed at the block decoders' parse hand-over and copy
+    steps (K1 and K3: a parse thread hands sequences, 32 at a time, through
+    a ring of 2,048 to warps that copy 224 bytes per step). name -> (rows
+    (B, C) uint8, clens (B,) int32, out_cap, window): window is the
+    right-aligned dictionary that K3 decodes them against (K1 takes none).
+
+      * short-offsets: one row per (offset 1-64, match length 4-130, output
+        position 0-40 where the match starts): a match of a period shorter
+        than a step, at and near the row's start, where K3 reads the window
+        and K1 refuses an offset past the output;
+      * ring-wrap: 64 KiB rows of 8,000-16,000 sequences (the ring wraps 4-8
+        times), one of exactly 8,192 (the row ends on a full ring), with
+        offsets into the window, and cut or damaged in the middle;
+      * clen-over-C: rows whose clen exceeds their width C = 64: literal
+        runs and offsets read past it (K1 clips at C - 1, K3 reads zeros),
+        length runs of 255s end on its last byte;
+      * out-cap: streams that pass out_cap = 64 in the middle of a literal
+        run or of a match, or fill it exactly."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n: int) -> bytes:
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    def batch(streams, C, out_cap, window, clens=None):
+        rows = np.zeros((len(streams), C), np.uint8)
+        for i, s in enumerate(streams):
+            s = s[:C]
+            rows[i, :len(s)] = np.frombuffer(s, np.uint8)
+        if clens is None:
+            clens = [len(s) for s in streams]
+        return rows, np.asarray(clens, np.int32), out_cap, window
+
+    out = {}
+    short = []
+    for off in SHORT_OFFS:
+        for op in SHORT_OPS:
+            lits = bytes((37 * k + 11) & 255 for k in range(op))
+            for ml in SHORT_MLS:
+                short.append(lz4_sequence(lits, off, ml)
+                             + lz4_sequence(b"z"))
+    out["short-offsets"] = batch(short, 256, 256, rand(256))
+
+    def chain(n_seq, lit_max, off_max, ml_max, reach, cap=65536 - 64):
+        """n_seq match sequences (or until the output nears cap) after 16
+        literals, offsets reaching up to `reach` bytes before the row."""
+        s = bytearray()
+        op = 0
+        for k in range(n_seq):
+            lits = rand(16 if k == 0 else int(rng.integers(0, lit_max + 1)))
+            ml = int(rng.integers(4, ml_max + 1))
+            if op + len(lits) + ml > cap:
+                break
+            off = int(rng.integers(1, min(off_max, op + len(lits) + reach)
+                                   + 1))
+            s += lz4_sequence(lits, off, ml)
+            op += len(lits) + ml
+        return bytes(s)
+
+    W = rand(65536)
+    m4 = bytearray(lz4_sequence(rand(16), 1, 4))
+    for k in range(1, 16000):
+        m4 += lz4_sequence(b"", 1 + k % 16, 4)
+    wrap = {
+        "m4": bytes(m4) + lz4_sequence(rand(5)),
+        "mixed": chain(20000, 3, 64, 8, 0) + lz4_sequence(rand(3)),
+        "far": chain(12000, 2, 65535, 6, 0) + lz4_sequence(rand(2)),
+        "window": chain(12000, 2, 40000, 6, 65536) + lz4_sequence(rand(2)),
+        # 8,192 sequences and an empty last one: the parse hands over
+        # exactly four rounds of the ring and then an empty batch
+        "8192": chain(8192, 1, 300, 6, 0) + bytes([0]),
+    }
+    for name in ("mixed", "window"):
+        s = wrap[name]
+        wrap[name + "-cut"] = s[:len(s) * 3 // 5]
+        flip = bytearray(s)
+        for _ in range(3):
+            flip[int(rng.integers(len(s) // 2, len(s)))] ^= int(
+                rng.integers(1, 256))
+        wrap[name + "-flip"] = bytes(flip)
+    out["ring-wrap"] = batch(list(wrap.values()), 65536 + 16, 65536, W)
+
+    C = 64
+    over = [
+        # literal runs past C, alone and followed by a match
+        lz4_sequence(rand(80)), lz4_sequence(rand(61) + b"\x07" * 19),
+        lz4_sequence(rand(70), 3, 9) + lz4_sequence(rand(4)),
+        # a match length run of 255s that ends on the row's last byte, a
+        # literal length that ends there
+        b"\x1fa\x01\x00" + b"\xff" * 59 + b"\x02",
+        lz4_sequence(rand(16), 9, 4) + b"\xf0" + b"\xff" * 41 + b"\x00",
+        # 16 literals and matches whose offset bytes lie past C
+        lz4_sequence(rand(16), 5, 6) * 4 + lz4_sequence(rand(9)),
+    ]
+    clens = [len(s) for s in over]
+    over += [rand(C) for _ in range(4)]
+    clens += [C + 1, C + 7, 2 * C, 300]
+    clens[3], clens[4] = C + 3, C + 9
+    out["clen-over-C"] = batch(over, C, 256, rand(256), clens)
+
+    cap = 64
+    edge = []
+    for lead in (0, 10, 59):
+        for extra in (-1, 0, 1, 20):
+            n = cap - lead + extra  # the run that reaches cap, +- extra
+            head = lz4_sequence(rand(lead), 1, 4) if lead else b""
+            pre = lead + 4 if lead else 0
+            edge.append(head + lz4_sequence(rand(max(cap - pre + extra, 0))))
+            if lead:
+                edge.append(lz4_sequence(rand(lead), lead, n)
+                            + lz4_sequence(b""))
+    edge.append(lz4_sequence(rand(10), 7, 54) + bytes([0]))  # fills it
+    edge.append(lz4_sequence(rand(10), 7, 55) + lz4_sequence(rand(2)))
+    out["out-cap"] = batch(edge, 128, cap, rand(256))
+    return out

@@ -13,7 +13,10 @@
 // Every read of the input clips at C - 1, as the kernel's do, so rows need
 // zero padding past clen. Match-length extensions are not checked against
 // clen, and the LZ4 end-of-block rules are not enforced: neither is by the
-// reference kernel.
+// reference kernel. lz4t_decode_row is the serial body: K1 runs the same
+// rules on the card as a parse thread feeding copy warps
+// (lz4_decode_ring.cuh), and the host build keeps this body as the
+// reference that the CPU tests hold the new one to.
 #pragma once
 
 #include "lz4_common.cuh"

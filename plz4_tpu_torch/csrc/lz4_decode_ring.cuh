@@ -1,0 +1,296 @@
+// K1 and K3's row body: a parse warp feeding byte-parallel copy warps
+// through a ring of sequences in shared memory.
+//
+// lz4t_parse_strict runs the per-sequence rules of lz4t_decode_row (K1,
+// reads past C clip to the row's last byte, a run of 255s that reaches it
+// never ends) or of lz4t_decode_window_row in strict mode (K3, reads past C
+// return 0, offsets may reach dlen bytes into the window), rewritten in
+// emit form: it copies nothing itself and hands each sequence, (ip, n_lit,
+// off, m), to emit in order with exactly the bytes the serial loop would
+// copy: a sequence whose literals fail its checks copies nothing and ends
+// the row, one whose match fails copies its literals only.
+// lz4t_copy_batch_lanes (lz4_decode_window.cuh) then writes the bytes
+// [0, n_out) the serial loop writes, 32 sequences at a time.
+//
+// The row is read from a padded copy: its C bytes and LZ4T_RING_PAD more
+// that hold what every read past C returns (c[C-1] for K1, 0 for K3), so a
+// read at p reads min(p, C) and needs no branch.
+//
+// On the card (lz4t_ring_row): warp 0's lane 0 parses and fills a ring of
+// LZ4T_RING_BATCHES slots of 32 sequences; warps 1-7 copy the slots in
+// order. Each slot has a full and an empty mbarrier: the parse waits on a
+// slot's empty barrier (one arrival per copy warp, once it has read the
+// slot) before it refills it, and arrives on its full barrier when the
+// slot holds 32 sequences or the row's last ones (fewer than 32, maybe 0,
+// which tells the copy warps that the row has ended). The host build runs
+// the same parse and copies through the same ring, copying the oldest
+// batch whenever the parse finds the ring full.
+#pragma once
+
+#include "lz4_decode.cuh"
+#include "lz4_decode_window.cuh"
+
+#define LZ4T_RING_BATCHES 64  // ring slots (a power of 2), 32 sequences
+                              // of 16 B each
+#define LZ4T_RING_PAD 16      // bytes staged past the input row
+#define LZ4T_RING_WARPS 7     // copy warps: the block's other warps
+// shared memory ahead of the staged rows: the ring, two mbarriers and a
+// count per slot, and the row's n_out (ops/decode.py: RING_SMEM)
+#define LZ4T_RING_SMEM (LZ4T_RING_BATCHES * (32 * 16 + 8 + 8 + 4) + 16)
+
+// byte p of a padded row of C bytes (cw: (C + LZ4T_RING_PAD) / 4 words)
+LZ4T_HD int lz4t_pad_rd(const uint32_t* cw, int C, int p) {
+  return reinterpret_cast<const uint8_t*>(cw)[lz4t_min(p, C)];
+}
+
+// LZ4 length extension from p over a padded row (kClip: K1's rule, a run
+// of 255s that reaches the clipped last byte ends with a length no check
+// accepts; else the pad's zeros end it)
+template <bool kClip>
+LZ4T_HD int lz4t_pad_varint(const uint32_t* cw, int C, int p, int* len) {
+  int t = *len, b;
+  do {
+    b = lz4t_pad_rd(cw, C, p++);
+    t += b;
+    if (kClip && p > C && b == 255) {
+      t = 0x3fffffff;
+      break;
+    }
+  } while (b == 255);
+  *len = t;
+  return p;
+}
+
+// Strict parse of one row (K1: kClip, dlen 0; K3: dlen window bytes) over
+// its padded copy cw, handing its sequences to emit in order: emit.open()
+// before each batch of 32 (emit.k, the count so far, is then a multiple of
+// 32), then emit(ip, n_lit, off, m) for each sequence, with the literals
+// and match bytes that the serial loop copies (the last one may copy
+// nothing). out_len is the output cap.
+//
+// Written for one thread's dependent chain, whose links are shared-memory
+// reads and branches: once a sequence's literal length is known, the five
+// bytes where its literals end are read at once (the offset, a match length
+// extension byte, and the next token and the byte after it, with or
+// without that extension byte), and a length with one extension byte is
+// taken from them without a branch. Only a length of two or more
+// extension bytes branches (its 255s, then the loop). The match is emitted
+// before its checks are known, which hold on every valid stream: where
+// they fail, the next pass takes the match back (emit.drop_last) and
+// stops, as the serial loop stops after copying the literals only. A batch
+// is published by the next open(), or by finish(), so drop_last may still
+// change its last sequence.
+template <bool kClip, class Emit>
+LZ4T_HD void lz4t_parse_strict(const uint32_t* cw, int C, int clen, int dlen,
+                               int out_len, Emit& emit, int* n_out,
+                               int* ok_out) {
+  const uint8_t* cb = reinterpret_cast<const uint8_t*>(cw);
+  int ip = 0, op = 0, ok = clen > 0, done = clen <= 0;
+  int token = cb[0], e1 = cb[lz4t_min(1, C)];  // the token, the byte after
+  // the last sequence: its match failed its checks, its match length
+  int last_bad = 0, last_m = 0;
+  while (!done) {
+    emit.open();
+    const int kend = emit.k + 32;
+    do {
+      if (__builtin_expect(last_bad, 0)) break;
+      int lit = token >> 4;
+      const int x15 = lit == 15;
+      int p = ip + 1 + x15;
+      lit += x15 ? e1 : 0;
+      if (__builtin_expect(x15 & (e1 == 255), 0)) {
+        lit = 15;
+        p = lz4t_pad_varint<kClip>(cw, C, ip + 1, &lit);
+      }
+      const int bad = (ip >= clen) | (p + lit > clen) | (op + lit > out_len);
+      const int lit_n = bad ? 0 : lit;
+      const int lit_ip = p;
+      p += lit_n;
+      op += lit_n;
+      const int fin = (p >= clen) | bad;
+      // past C the pad holds what every read there returns
+      const uint8_t* w = cb + lz4t_min(p, C);
+      const int b0 = w[0], b1 = w[1], b2 = w[2], b3 = w[3], b4 = w[4];
+      const int off = b0 | b1 << 8;
+      int ml = token & 15;
+      const int m15 = ml == 15;
+      int q = p + 2 + m15;
+      ml += m15 ? b2 : 0;
+      token = m15 ? b3 : b2;
+      e1 = m15 ? b4 : b3;
+      if (__builtin_expect(m15 & (b2 == 255) & !fin, 0)) {
+        ml = 15;
+        q = lz4t_pad_varint<kClip>(cw, C, p + 2, &ml);
+        token = lz4t_pad_rd(cw, C, q);
+        e1 = lz4t_pad_rd(cw, C, q + 1);
+      }
+      ml += 4;
+      const int m = fin ? 0 : ml;
+      last_bad = (!fin) & ((p + 2 > clen) | (off == 0) | (off > op + dlen) |
+                         (op + ml > out_len));
+      last_m = m;
+      emit(lit_ip, lit_n, off, m);
+      op += m;
+      ok = ok && !bad;
+      done = fin;
+      ip = fin ? p : q;
+    } while (!done & (emit.k < kend));
+    if (last_bad) {
+      op -= last_m;
+      emit.drop_last();
+      ok = 0;
+      break;
+    }
+  }
+  *n_out = op;
+  *ok_out = ok && ip == clen;
+}
+
+#if defined(__CUDACC__)
+
+__device__ __forceinline__ uint32_t lz4t_smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void lz4t_mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   lz4t_smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void lz4t_mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   lz4t_smem_addr(bar))
+               : "memory");
+}
+
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void lz4t_mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(lz4t_smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The parse's side of the ring: sequence k goes to entry k % 32 of slot
+// (k / 32) % LZ4T_RING_BATCHES (a power of 2), that is to ring[k % (32
+// LZ4T_RING_BATCHES)].
+struct lz4t_ring_emit {
+  int4* ring;
+  int* cnt;
+  uint64_t* full;
+  uint64_t* empty;
+  int k;    // sequences emitted
+  int pub;  // batches published
+  __device__ void publish(int n) {
+    const int s = pub++ & (LZ4T_RING_BATCHES - 1);
+    cnt[s] = n;
+    lz4t_mbar_arrive(&full[s]);
+  }
+  // at k = 32 b: publish batch b - 1, and wait until the copy warps have
+  // read the last round of batch b's slot
+  __host__ __device__ void open() {
+#if defined(__CUDA_ARCH__)
+    const int b = k >> 5;
+    if (pub < b) publish(32);
+    if (b >= LZ4T_RING_BATCHES)
+      lz4t_mbar_wait(&empty[b & (LZ4T_RING_BATCHES - 1)],
+                     (b / LZ4T_RING_BATCHES - 1) & 1);
+#endif
+  }
+  __host__ __device__ void operator()(int ip, int n_lit, int off, int m) {
+#if defined(__CUDA_ARCH__)
+    ring[k++ & (32 * LZ4T_RING_BATCHES - 1)] = make_int4(ip, n_lit, off, m);
+#endif
+  }
+  // the last sequence copies its literals only
+  __host__ __device__ void drop_last() {
+#if defined(__CUDA_ARCH__)
+    ring[(k - 1) & (32 * LZ4T_RING_BATCHES - 1)].w = 0;
+#endif
+  }
+  // the row's last batch: fewer than 32 sequences
+  __device__ void finish() {
+    if ((k & 31) == 0) open();
+    publish(k & 31);
+  }
+};
+
+// One row of K1 (kClip; dict null, D = dlen = 0) or K3 (against the
+// right-aligned window dict of D bytes, dlen usable) by the block's 256
+// threads. smem: LZ4T_RING_SMEM + C + LZ4T_RING_PAD + D + out_cap bytes.
+// Writes out[0, n_out) (the rest undefined), *n_out and *ok.
+template <bool kClip>
+__device__ __forceinline__ void lz4t_ring_row(
+    const uint8_t* __restrict__ row, int C, int clen,
+    const uint8_t* __restrict__ dict, int D, int dlen,
+    uint8_t* __restrict__ out, int32_t* __restrict__ n_out,
+    bool* __restrict__ ok, int out_cap, uint8_t* smem) {
+  constexpr int NB = LZ4T_RING_BATCHES;
+  int4* ring = reinterpret_cast<int4*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + NB * 32 * 16);
+  uint64_t* empty = full + NB;
+  int* cnt = reinterpret_cast<int*>(empty + NB);
+  int* s_n = cnt + NB;
+  uint32_t* cw = reinterpret_cast<uint32_t*>(smem + LZ4T_RING_SMEM);
+  uint32_t* dw = cw + (C + LZ4T_RING_PAD) / 4;
+  uint32_t* ow = dw + D / 4;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(row);
+  const uint32_t* dsrc = reinterpret_cast<const uint32_t*>(dict);
+  const int nw = C / 4;
+  for (int i = t; i < nw; i += blockDim.x) cw[i] = src[i];
+  if (t < LZ4T_RING_PAD / 4)
+    cw[nw + t] = kClip && nw ? (src[nw - 1] >> 24) * 0x01010101u : 0u;
+  for (int i = t; i < D / 4; i += blockDim.x) dw[i] = dsrc[i];
+  if (t == 0) {
+    for (int s = 0; s < NB; s++) {
+      lz4t_mbar_init(&full[s], 1);
+      lz4t_mbar_init(&empty[s], LZ4T_RING_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  uint8_t* o = reinterpret_cast<uint8_t*>(ow);
+  if (warp == 0) {
+    if (lane == 0) {
+      lz4t_ring_emit em = {ring, cnt, full, empty, 0, 0};
+      int n, okv;
+      lz4t_parse_strict<kClip>(cw, C, clen, dlen, out_cap, em, &n, &okv);
+      em.finish();
+      *n_out = n;
+      *ok = okv != 0;
+      *s_n = n;
+    }
+    __syncwarp();
+  } else {
+    const auto lit = [cw, C](int p) { return lz4t_pad_rd(cw, C, p); };
+    const uint8_t* win = reinterpret_cast<const uint8_t*>(dw);
+    int bop = 0;
+    for (int b = 0;; b++) {
+      const int s = b % NB;
+      lz4t_mbar_wait(&full[s], (b / NB) & 1);
+      __syncwarp();
+      const int n = cnt[s];
+      bop = lz4t_copy_batch_lanes<LZ4T_RING_WARPS>(
+          lit, o, win, D, reinterpret_cast<const int32_t*>(ring + s * 32), n,
+          bop, warp - 1, [&] {
+            if (lane == 0) lz4t_mbar_arrive(&empty[s]);
+          });
+      if (n < 32) break;
+    }
+  }
+  __syncthreads();
+  uint32_t* dst = reinterpret_cast<uint32_t*>(out);
+  const int words = (*s_n + 3) / 4;  // n_out <= out_cap, out_cap % 4 == 0
+  for (int i = t; i < words; i += blockDim.x) dst[i] = ow[i];
+}
+
+#endif  // __CUDACC__

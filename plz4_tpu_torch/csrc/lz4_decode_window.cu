@@ -1,17 +1,24 @@
 // K3 and K5: LZ4 decode against a right-aligned window, one thread block
 // per row (K3) or per large block (K5). The row bodies are in
-// lz4_decode_window.cuh: lz4t_decode_window_row (K3, one thread), and
-// lz4t_decode_record and lz4t_copy_record_lanes (K5's parse, one thread
-// per record, and copies, eight warps per large block).
+// lz4_decode_ring.cuh (K3: lz4t_ring_row, a parse warp feeding seven copy
+// warps) and lz4_decode_window.cuh (K5: lz4t_decode_record, one thread per
+// record, and lz4t_copy_record_lanes, eight warps per large block); both
+// copy with lz4t_copy_batch_lanes.
 //
 // K3 replaces the Pallas TPU kernel plz4_tpu/ops/decode_pallas.py:
 // _decode_dict_kernel with strict=True (decode_block_pallas_dict, batched
 // by plz4_tpu/parallel/batch.py:_decode_batch_dict_pallas): whole blocks of
-// a dictionary frame against the frame's dictionary. The compressed row,
-// the dictionary and the output row live in shared memory (65,552 +
-// 65,536 + 65,536 B at 64 KiB blocks); thread 0 decodes and then all 256
-// threads write the n_out bytes out. It is bound by the latency of one
-// thread's dependent shared-memory accesses.
+// a dictionary frame against the frame's dictionary. Its rules are those of
+// lz4t_decode_window_row (lz4_decode_window.cuh), the serial body that the
+// host build keeps as the new one's reference. It is K1's design with a
+// window (lz4_decode.cu says why): the parse is one dependent chain, so
+// warp 0's lane 0 only parses and hands each sequence through a ring of
+// 64 slots of 32 sequences (full/empty mbarriers) to warps 1-7, which
+// write 224 output bytes per step, a match reading the dictionary where
+// its source lies before the block. One launch per batch. Shared memory:
+// the ring (34,064 B), the compressed row padded with zeros (65,568), the
+// dictionary (65,536) and the output row (65,536): 230,704 B at 64 KiB
+// blocks, of the 232,448 a block can use.
 //
 // K5 replaces _decode_kernel_bw_rec (_decode_record, scanned over a block's
 // records by decode_chunks_pallas / decode_chunks_batch_pallas), and with
@@ -43,7 +50,7 @@
 // n_out), and after its copies.
 #include <cuda_runtime.h>
 
-#include "lz4_decode_window.cuh"
+#include "lz4_decode_ring.cuh"
 
 namespace {
 
@@ -57,34 +64,14 @@ __global__ void __launch_bounds__(kThreads)
                             int32_t* __restrict__ n_out,
                             bool* __restrict__ ok, int C, int D, int dlen,
                             int out_cap) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  __shared__ int s_n;
-  uint32_t* cw = smem;
-  uint32_t* dw = smem + C / 4;
-  uint32_t* ow = dw + D / 4;
+  extern __shared__ __align__(16) uint32_t smem[];  // as K5's kernel's
   const int b = blockIdx.x;
-  const uint32_t* src =
-      reinterpret_cast<const uint32_t*>(comp + (size_t)b * C);
-  const uint32_t* dsrc = reinterpret_cast<const uint32_t*>(dict);
-  for (int i = threadIdx.x; i < C / 4; i += blockDim.x) cw[i] = src[i];
-  for (int i = threadIdx.x; i < D / 4; i += blockDim.x) dw[i] = dsrc[i];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int32_t meta[7] = {clens[b], dlen, 0, 0, 0, 0, out_cap};
-    int n, okv;
-    lz4t_decode_window_row(reinterpret_cast<const uint8_t*>(cw), C, meta,
-                           reinterpret_cast<const uint8_t*>(dw), D,
-                           reinterpret_cast<uint8_t*>(ow), out_cap, &n,
-                           &okv);
-    n_out[b] = n;
-    ok[b] = okv != 0;
-    s_n = n;
-  }
-  __syncthreads();
-  uint32_t* dst = reinterpret_cast<uint32_t*>(out + (size_t)b * out_cap);
-  const int words = (s_n + 3) / 4;  // s_n <= out_cap, out_cap % 4 == 0
-  for (int i = threadIdx.x; i < words; i += blockDim.x) dst[i] = ow[i];
+  lz4t_ring_row<false>(comp + (size_t)b * C, C, clens[b], dict, D, dlen,
+                       out + (size_t)b * out_cap, n_out + b, ok + b, out_cap,
+                       reinterpret_cast<uint8_t*>(smem));
 }
+static_assert(32 * (1 + LZ4T_RING_WARPS) == kThreads,
+              "K3: one parse warp and the copy warps");
 
 // n words from src to dst by `threads` threads from thread t
 __device__ __forceinline__ void lz4t_copy_words(
@@ -186,7 +173,7 @@ extern "C" int lz4t_launch_dict(const void* comp, const void* clens,
                                 const void* dict, void* out, void* n_out,
                                 void* ok, int B, int C, int D, int dlen,
                                 int out_cap, void* stream) {
-  const int smem = C + D + out_cap;
+  const int smem = LZ4T_RING_SMEM + C + LZ4T_RING_PAD + D + out_cap;
   cudaError_t e = cudaFuncSetAttribute(
       lz4t_decode_dict_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);

@@ -4,9 +4,11 @@
 // copies, 8-wide wild copies and straight-line fast tiers return the same
 // (ip, op, ok) and the same bytes [0, op) as their byte-serial careful
 // path, so one exact loop stands for all of them. Two row bodies share the
-// rules below: lz4t_decode_window_row, one thread, strict mode (K3), and
-// lz4t_decode_record, record mode (K5 and K6c), whose scalar parse hands
-// each sequence's copies to a warp (lz4t_copy_seq_lanes).
+// rules below: lz4t_decode_window_row, one thread, strict mode (K3's serial
+// body: the host build's reference for lz4_decode_ring.cuh, which K3 runs
+// on the card), and lz4t_decode_record, record mode (K5 and K6c), whose
+// scalar parse hands each sequence's copies to warps that copy byte-
+// parallel (lz4t_copy_batch_lanes, K1's and K3's copies too).
 //
 // meta = [clen, dlen, pre_lit, pre_skip, pre_moff, pre_mlen, out_len]
 // (the native lz4r_chunk_split record layout, dlen in meta[1]); win holds W
@@ -43,20 +45,20 @@
 // A carried offset below 1 copies as offset 1, as _decode_kernel_bw_rec's
 // in-record copier does.
 //
-// K5's copies (lz4t_copy_record_lanes) are byte-parallel: a step writes
-// 256 consecutive output bytes [S, S + 256), lane i of copy warp w the
-// byte x = S + 32 w + i. In the byte-serial copy a literal byte is an
-// input byte, and a match byte at offset off is the output byte off before
-// it, which for a match starting at om equals (by induction over a match
-// that overlaps itself) the byte at om - off + ((x - om) mod off). So each
-// byte resolves to an input byte, a window byte (index y < 0: win[W + y],
-// 0 before the window) or an output byte y < x, taken as x - off when off
-// >= 32 and in the periodic form when off < 32. Where y lies in the same
-// step (y >= S) the lane resolves y in turn; y belongs to an earlier
-// sequence or to the same sequence's literals, so the rounds end. Every
-// lane then loads its resolved source, input, window or output before S,
-// and stores its byte: no lane reads what the step writes, and the steps,
-// ordered by a barrier among the copy warps, give the byte-serial bytes.
+// The copies (lz4t_copy_batch_lanes) are byte-parallel: with NW copy warps (8
+// in K5, 7 in K1 and K3) a step writes 32 NW consecutive output bytes [S, S +
+// 32 NW), lane i of copy warp w the byte x = S + 32 w + i. In the byte-serial
+// copy a literal byte is an input byte, and a match byte at offset off is the
+// output byte off before it, which for a match starting at om equals (by
+// induction over a match that overlaps itself) the byte at om - off + ((x -
+// om) mod off). So each byte resolves to an input byte, a window byte (index y
+// < 0: win[W + y], 0 before the window) or an output byte y < x, taken as x -
+// off when off >= 32 and in the periodic form when off < 32. Where y lies in
+// the same step (y >= S) the lane resolves y in turn; y belongs to an earlier
+// sequence or to the same sequence's literals, so the rounds end. Every lane
+// then loads its resolved source, input, window or output before S, and stores
+// its byte: no lane reads what the step writes, and the steps, ordered by a
+// barrier among the copy warps, give the byte-serial bytes.
 #pragma once
 
 #include "lz4_lanes.cuh"
@@ -118,109 +120,123 @@ LZ4T_HD void lz4t_decode_window_row(const uint8_t* c, int C,
 }
 
 #define LZ4T_COPY_WARPS 8  // K5's copy warps
+#define LZ4T_COPY_BAR 1    // named barrier of the copy steps (0 is
+                           // __syncthreads')
 
-// The copies of one record (K5): its n sequences seq[4 k ..] = (ip, n_lit,
-// off, m) in order, each writing n_lit literals from c[ip..) and then m
-// match bytes at offset off (below 1 copied as 1) where the one before
-// ended, to o[0..) against the window win (see the file comment). Run by
-// LZ4T_COPY_WARPS warps together, warp w (on the card; the host runs them
-// all in turn) writing bytes S + 32 w .. + 31 of each 256-byte step S.
-LZ4T_HD void lz4t_copy_record_lanes(const uint8_t* c, int C, uint8_t* o,
-                                    const uint8_t* win, int W,
-                                    const int32_t* seq, int n, int w) {
+// The copies of one batch of sequences (K5, and K1 and K3 through
+// lz4_decode_ring.cuh): its n <= 32 sequences e[4 k ..] = (ip, n_lit, off,
+// m) in order, each writing n_lit literals lit(ip ..) and then m match
+// bytes at offset off (below 1 copied as 1) where the one before ended,
+// the first at output position bop, to o against the window win (see the
+// file comment). Run by NW warps together, warp w (on the card; the host
+// runs them all in turn, the last first) writing bytes S + 32 w .. + 31
+// of each step S of 32 NW bytes; the steps are ordered by named barrier
+// LZ4T_COPY_BAR over the NW warps. done() runs once e has been read (on
+// the card in every lane, after a __syncwarp): the caller may reuse e
+// from then on. Returns the batch's end, the next batch's bop.
+template <int NW, class Lit, class Done>
+LZ4T_HD int lz4t_copy_batch_lanes(Lit lit, uint8_t* o, const uint8_t* win,
+                                  int W, const int32_t* e, int n, int bop,
+                                  int w, Done done) {
 #if defined(__CUDA_ARCH__)
   const int w0 = w, w1 = w + 1;
 #else
-  const int w0 = 0 * w, w1 = LZ4T_COPY_WARPS;
+  const int w0 = 0 * w, w1 = NW;
 #endif
-  const int span = LZ4T_COPY_WARPS * LZ4T_LANES;
-  // the batch: 32 sequences, lane j's sequence bbase + j, starting at op
-  // and ending at end, the batch's output [bop, bend)
+  const int span = NW * LZ4T_LANES;
+  // lane j's sequence j, starting at op and ending at end
   int ip[LZ4T_NL], nl[LZ4T_NL], off[LZ4T_NL], m[LZ4T_NL], op[LZ4T_NL],
       end[LZ4T_NL];
   // a step's lanes: the byte x each resolves, and its state: 0 pending,
   // 1 input byte src, 2 output byte src (window below 0), 3 idle
   int x[LZ4T_NL], st[LZ4T_NL], src[LZ4T_NL];
-  int bop = 0;
-  for (int bbase = 0; bbase < n; bbase += LZ4T_LANES) {
-    lz4t_lanes([&](int i) {
-      const int l = lz4t_li(i), q = bbase + i;
-      const int32_t* e = seq + 4 * (size_t)q;
-      ip[l] = q < n ? e[0] : 0;
-      nl[l] = q < n ? e[1] : 0;
-      off[l] = q < n ? lz4t_max(e[2], 1) : 1;
-      m[l] = q < n ? e[3] : 0;
-      end[l] = nl[l] + m[l];
-    });
-    lz4t_lane_scan(end);
-    lz4t_lanes([&](int i) {
-      const int l = lz4t_li(i);
-      end[l] += bop;
-      op[l] = end[l] - nl[l] - m[l];
-    });
-    const int bend = lz4t_lane_get(end, LZ4T_LANES - 1);
-    int k0 = 0;
-    for (int S = bop; S < bend; S += span) {
-      // the batch sequences that overlap [S, S + span): k0 .. k1
-      while (lz4t_lane_get(end, k0) <= S) k0++;
-      const int last = lz4t_min(S + span, bend) - 1;
-      const int k1 = lz4t_fls(
-          lz4t_ballot([&](int i) { return op[lz4t_li(i)] <= last; }));
-      // (on the host the last warp first: a warp that read another's bytes
-      // of the same step would read them unwritten)
-      for (int ww = w1 - 1; ww >= w0; ww--) {
-        const int s = S + ww * LZ4T_LANES;
+  lz4t_lanes([&](int i) {
+    const int l = lz4t_li(i);
+    const int32_t* q = e + 4 * i;
+    ip[l] = i < n ? q[0] : 0;
+    nl[l] = i < n ? q[1] : 0;
+    off[l] = i < n ? lz4t_max(q[2], 1) : 1;
+    m[l] = i < n ? q[3] : 0;
+    end[l] = nl[l] + m[l];
+  });
+  done();
+  lz4t_lane_scan(end);
+  lz4t_lanes([&](int i) {
+    const int l = lz4t_li(i);
+    end[l] += bop;
+    op[l] = end[l] - nl[l] - m[l];
+  });
+  const int bend = lz4t_lane_get(end, LZ4T_LANES - 1);
+  for (int S = bop; S < bend; S += span) {
+    for (int ww = w1 - 1; ww >= w0; ww--) {
+      const int s = S + ww * LZ4T_LANES;
+      lz4t_lanes([&](int i) {
+        const int l = lz4t_li(i);
+        x[l] = s + i;
+        st[l] = s + i < bend ? 0 : 3;
+      });
+      // resolve: a match byte whose source lies in this step takes that
+      // source's place (its sequence is an earlier one, or the same
+      // sequence's literals), until every source is input or an earlier
+      // step's output
+      while (lz4t_ballot([&](int i) { return st[lz4t_li(i)] == 0; })) {
         lz4t_lanes([&](int i) {
           const int l = lz4t_li(i);
-          x[l] = s + i;
-          st[l] = s + i < bend ? 0 : 3;
+          // k: the last sequence starting at or before x (ops rise over
+          // the batch, every sequence writes a byte, and lanes past n
+          // start at bend), by binary search over the lanes
+          int k = 0;
+          for (int d = LZ4T_LANES / 2; d; d >>= 1)
+            if (lz4t_lane_get(op, k + d) <= x[l]) k += d;
+          const int kop = lz4t_lane_get(op, k), knl = lz4t_lane_get(nl, k);
+          const int kip = lz4t_lane_get(ip, k), koff = lz4t_lane_get(off, k);
+          if (st[l] != 0) return;
+          const int om = kop + knl;
+          if (x[l] < om) {
+            st[l] = 1;
+            src[l] = kip + x[l] - kop;
+            return;
+          }
+          const int y = koff >= LZ4T_LANES ? x[l] - koff
+                                           : om - koff + (x[l] - om) % koff;
+          if (y < S) {
+            st[l] = 2;
+            src[l] = y;
+          } else {
+            x[l] = y;
+          }
         });
-        // resolve: a match byte whose source lies in this step takes that
-        // source's place (its sequence is an earlier one, or the same
-        // sequence's literals), until every source is input or an earlier
-        // step's output
-        while (lz4t_ballot([&](int i) { return st[lz4t_li(i)] == 0; })) {
-          lz4t_lanes([&](int i) {
-            const int l = lz4t_li(i);
-            int k = k0;
-            for (int q = k0 + 1; q <= k1; q++)
-              if (lz4t_lane_get(op, q) <= x[l]) k = q;
-            const int kop = lz4t_lane_get(op, k), knl = lz4t_lane_get(nl, k);
-            const int kip = lz4t_lane_get(ip, k), koff = lz4t_lane_get(off, k);
-            if (st[l] != 0) return;
-            const int om = kop + knl;
-            if (x[l] < om) {
-              st[l] = 1;
-              src[l] = kip + x[l] - kop;
-              return;
-            }
-            const int y = koff >= LZ4T_LANES ? x[l] - koff
-                                             : om - koff + (x[l] - om) % koff;
-            if (y < S) {
-              st[l] = 2;
-              src[l] = y;
-            } else {
-              x[l] = y;
-            }
-          });
-        }
-        lz4t_lanes_copy(
-            [&](int i) {
-              const int l = lz4t_li(i), y = src[l];
-              if (st[l] == 1) return lz4t_rdz(c, C, y);
-              if (st[l] == 3) return -1;
-              if (y >= 0) return (int)o[y];
-              return W + y >= 0 ? (int)win[W + y] : 0;
-            },
-            [&](int i, int v) { o[s + i] = (uint8_t)v; });
       }
-#if defined(__CUDA_ARCH__)
-      // the step's bytes are written before any copy warp reads them
-      asm volatile("bar.sync 1, %0;" ::"r"(span));
-#endif
+      lz4t_lanes_copy(
+          [&](int i) {
+            const int l = lz4t_li(i), y = src[l];
+            if (st[l] == 1) return lit(y);
+            if (st[l] == 3) return -1;
+            if (y >= 0) return (int)o[y];
+            return W + y >= 0 ? (int)win[W + y] : 0;
+          },
+          [&](int i, int v) { o[s + i] = (uint8_t)v; });
     }
-    bop = bend;
+#if defined(__CUDA_ARCH__)
+    // the step's bytes are written before any copy warp reads them
+    asm volatile("bar.sync %0, %1;" ::"n"(LZ4T_COPY_BAR), "r"(span));
+#endif
   }
+  return bend;
+}
+
+// The copies of one record (K5): its n sequences seq[4 k ..] in order
+// from output position 0, in batches of 32, by LZ4T_COPY_WARPS warps (see
+// lz4t_copy_batch_lanes); input reads past C return 0.
+LZ4T_HD void lz4t_copy_record_lanes(const uint8_t* c, int C, uint8_t* o,
+                                    const uint8_t* win, int W,
+                                    const int32_t* seq, int n, int w) {
+  const auto lit = [c, C](int p) { return lz4t_rdz(c, C, p); };
+  int bop = 0;
+  for (int b = 0; b < n; b += LZ4T_LANES)
+    bop = lz4t_copy_batch_lanes<LZ4T_COPY_WARPS>(
+        lit, o, win, W, seq + 4 * (size_t)b, lz4t_min(n - b, LZ4T_LANES),
+        bop, w, [] {});
 }
 
 // The parse of one record, record mode (K5). It is scalar and hands each

@@ -1,15 +1,17 @@
 // Host build of the CUDA kernels' row bodies (lz4_encode.cuh,
 // lz4_encode_mid.cuh, lz4_encode_deep.cuh, lz4_decode.cuh,
-// lz4_decode_window.cuh, lz4_decode_wide.cuh, xxh32.cuh), compiled with g++
-// so that the CPU tests can run the kernels' own logic on machines without
-// a GPU. Same layouts and results as the kernels' launchers. The bodies
-// that one warp runs together (K2a-K2d, K4, K5) run their lanes' steps as
-// loops over lanes 0-31 here (lz4_lanes.cuh).
+// lz4_decode_window.cuh, lz4_decode_ring.cuh, lz4_decode_wide.cuh,
+// xxh32.cuh), compiled with g++ so that the CPU tests can run the kernels'
+// own logic on machines without a GPU. Same layouts and results as the
+// kernels' launchers. The bodies that warps run together (K1, K2a-K2d, K3,
+// K4, K5) run their lanes' steps as loops over lanes 0-31 here
+// (lz4_lanes.cuh).
 #include <string.h>
 
 #include <vector>
 
 #include "lz4_decode.cuh"
+#include "lz4_decode_ring.cuh"
 #include "lz4_decode_wide.cuh"
 #include "lz4_decode_window.cuh"
 #include "lz4_encode.cuh"
@@ -240,10 +242,101 @@ extern "C" void lz4t_host_deep_chain(const uint8_t* data, const int32_t* lens,
                    win, wlens, r, N, D, K, Dc, hash_log);
 }
 
+// K1 and K3's ring (lz4_decode_ring.cuh) on the host: the parse fills
+// LZ4T_RING_BATCHES slots of 32 sequences, publishing a batch as the card's
+// parse does, and where the card's parse would wait for a free slot, the
+// copies of the oldest published batch run (LZ4T_RING_WARPS warps, the
+// last first). The copies read a batch as it was when it was published
+// (a later change to it, which the card's copy warps may not see, is lost
+// here), and its slot is poisoned as soon as they have read it, so copies
+// that read a slot after releasing it fail the tests.
+struct host_ring {
+  const uint32_t* cw;
+  int C;
+  uint8_t* o;
+  const uint8_t* win;
+  int W;
+  std::vector<int32_t> slots =
+      std::vector<int32_t>(LZ4T_RING_BATCHES * 32 * 4);
+  std::vector<int32_t> published = slots;  // each slot as published
+  int cnt[LZ4T_RING_BATCHES];
+  int k = 0, pub = 0, copied = 0, bop = 0;
+  int32_t* entry(int q) {
+    return slots.data() + ((q >> 5) % LZ4T_RING_BATCHES) * 128 + 4 * (q & 31);
+  }
+  void copy_oldest() {
+    int32_t* e = published.data() + (entry(32 * copied) - slots.data());
+    const uint32_t* w = cw;
+    const int C_ = C;
+    bop = lz4t_copy_batch_lanes<LZ4T_RING_WARPS>(
+        [w, C_](int p) { return lz4t_pad_rd(w, C_, p); }, o, win, W, e,
+        cnt[copied % LZ4T_RING_BATCHES], bop, 0,
+        [this, e] {
+          memset(e, 0xA5, 128 * sizeof(int32_t));
+          memset(entry(32 * copied), 0xA5, 128 * sizeof(int32_t));
+        });
+    copied++;
+  }
+  void publish(int n) {
+    const int s = pub++ % LZ4T_RING_BATCHES;
+    cnt[s] = n;
+    memcpy(published.data() + s * 128, slots.data() + s * 128,
+           128 * sizeof(int32_t));
+  }
+  void open() {
+    const int b = k >> 5;
+    if (pub < b) publish(32);
+    while (b - copied >= LZ4T_RING_BATCHES) copy_oldest();
+  }
+  void operator()(int ip, int n_lit, int off, int m) {
+    int32_t* e = entry(k++);
+    e[0] = ip;
+    e[1] = n_lit;
+    e[2] = off;
+    e[3] = m;
+  }
+  void drop_last() { entry(k - 1)[3] = 0; }
+  void finish() {
+    if ((k & 31) == 0) open();
+    publish(k & 31);
+    while (copied < pub) copy_oldest();
+  }
+};
+
+// one row of K1 (kClip) or K3 through the ring: the row staged with its
+// pad as the card stages it
+template <bool kClip>
+static void ring_row(const uint8_t* row, int C, int clen, const uint8_t* win,
+                     int W, int dlen, uint8_t* o, int out_cap, int32_t* n_out,
+                     uint8_t* ok) {
+  std::vector<uint32_t> cw((C + LZ4T_RING_PAD) / 4);
+  uint8_t* cb = reinterpret_cast<uint8_t*>(cw.data());
+  memcpy(cb, row, C);
+  memset(cb + C, kClip && C ? row[C - 1] : 0, LZ4T_RING_PAD);
+  host_ring ring = {cw.data(), C, o, win, W};
+  int n, okv;
+  lz4t_parse_strict<kClip>(cw.data(), C, clen, dlen, out_cap, ring, &n,
+                           &okv);
+  ring.finish();
+  *n_out = n;
+  *ok = okv != 0;
+}
+
 // K1: lz4_decode.cu
 extern "C" void lz4t_host_decode(const uint8_t* comp, const int32_t* clens,
                                  uint8_t* out, int32_t* n_out, uint8_t* ok,
                                  int B, int C, int out_cap) {
+  for (int b = 0; b < B; b++)
+    ring_row<true>(comp + (size_t)b * C, C, clens[b], nullptr, 0, 0,
+                   out + (size_t)b * out_cap, out_cap, n_out + b, ok + b);
+}
+
+// K1's serial body (lz4t_decode_row), the new body's reference; no card
+// path runs it
+extern "C" void lz4t_host_decode_serial(const uint8_t* comp,
+                                        const int32_t* clens, uint8_t* out,
+                                        int32_t* n_out, uint8_t* ok, int B,
+                                        int C, int out_cap) {
   for (int b = 0; b < B; b++) {
     int n, okv;
     lz4t_decode_row(comp + (size_t)b * C, C, clens[b],
@@ -259,6 +352,17 @@ extern "C" void lz4t_host_decode_dict(const uint8_t* comp,
                                       const uint8_t* dict, uint8_t* out,
                                       int32_t* n_out, uint8_t* ok, int B,
                                       int C, int D, int dlen, int out_cap) {
+  for (int b = 0; b < B; b++)
+    ring_row<false>(comp + (size_t)b * C, C, clens[b], dict, D, dlen,
+                    out + (size_t)b * out_cap, out_cap, n_out + b, ok + b);
+}
+
+// K3's serial body (lz4t_decode_window_row, strict), the new body's
+// reference; no card path runs it
+extern "C" void lz4t_host_decode_dict_serial(
+    const uint8_t* comp, const int32_t* clens, const uint8_t* dict,
+    uint8_t* out, int32_t* n_out, uint8_t* ok, int B, int C, int D, int dlen,
+    int out_cap) {
   for (int b = 0; b < B; b++) {
     const int32_t meta[7] = {clens[b], dlen, 0, 0, 0, 0, out_cap};
     int n, okv;

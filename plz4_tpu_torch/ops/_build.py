@@ -48,7 +48,9 @@ HOST_FNS = {
     "lz4t_host_encode_deep": (7, 8),
     "lz4t_host_deep_chain": (5, 6),
     "lz4t_host_decode": (5, 3),
+    "lz4t_host_decode_serial": (5, 3),
     "lz4t_host_decode_dict": (6, 5),
+    "lz4t_host_decode_dict_serial": (6, 5),
     "lz4t_host_decode_records": (6, 4),
     "lz4t_host_encode_wide": (6, 5),
     "lz4t_host_decode_wide": (5, 3),

@@ -35,6 +35,11 @@ BW_MAX_OUT = 96 * 1024  # the widest output the Pallas byte-wide kernel takes
 MAX_WIDE_OUT = 4 << 20  # the widest output K6a takes: the LZ4 maximum block
 MAX_WINDOW = 65536  # the LZ4 match window
 MAX_SMEM = 232448  # shared memory a thread block can use on the H100
+# K1's and K3's shared memory besides their rows (csrc/lz4_decode_ring.cuh):
+# the ring of parsed sequences with its barriers (LZ4T_RING_SMEM) and the
+# pad staged past the compressed row (LZ4T_RING_PAD)
+RING_SMEM = 64 * (32 * 16 + 8 + 8 + 4) + 16
+ROW_PAD = 16
 
 launches = 0  # K1 launches by decode_batch
 wide_launches = 0  # K6a launches by decode_batch
@@ -53,20 +58,24 @@ def decode_batch(comp: torch.Tensor, clens: torch.Tensor, out_cap: int):
     and <= 4 MiB -> (out (B, out_cap) uint8, n_out (B,) int32, ok (B,)
     bool); bytes past n_out are undefined. Up to 96 KiB (bw_fits) reads
     clip at C - 1 as the Pallas byte-wide kernel's do, and K1 needs C +
-    out_cap bytes of shared memory; wider blocks read zeros past C and, on
-    a corrupt stream, may report n_out > out_cap (decode_batch_wide). On
-    CUDA tensors it launches K1 or K6a on the current stream without
-    synchronising; on CPU tensors it runs the plain version."""
+    out_cap + RING_SMEM + ROW_PAD bytes of shared memory (C + out_cap <=
+    198,368: the batch layer's rows, C = out_cap + 16, fit up to 96 KiB);
+    wider blocks read zeros past C and, on a corrupt stream, may report
+    n_out > out_cap (decode_batch_wide). On CUDA tensors it launches K1 or
+    K6a on the current stream without synchronising; on CPU tensors it
+    runs the plain version."""
     global launches, wide_launches
     if comp.dim() != 2 or comp.dtype != torch.uint8:
         raise ValueError("comp must be a (B, C) uint8 tensor")
     B, C = comp.shape
     wide = not bw_fits(out_cap)
     if (C % 4 or out_cap % 4 or not 0 < out_cap <= MAX_WIDE_OUT
-            or C > (MAX_WIDE_OUT * 3 // 2 if wide else MAX_SMEM - out_cap)):
+            or C > (MAX_WIDE_OUT * 3 // 2 if wide
+                    else MAX_SMEM - RING_SMEM - ROW_PAD - out_cap)):
         raise ValueError(f"row widths C={C}, out_cap={out_cap}: need "
                          f"multiples of 4, out_cap <= {MAX_WIDE_OUT}, C + "
-                         f"out_cap <= {MAX_SMEM} up to {BW_MAX_OUT}")
+                         f"out_cap <= {MAX_SMEM - RING_SMEM - ROW_PAD} up "
+                         f"to {BW_MAX_OUT}")
     if (clens.shape != (B,) or clens.dtype != torch.int32
             or clens.device != comp.device):
         raise ValueError("clens must be a (B,) int32 tensor on comp's device")
@@ -93,6 +102,14 @@ def decode_batch(comp: torch.Tensor, clens: torch.Tensor, out_cap: int):
     return out, n_out, ok
 
 
+def max_stream(out_cap: int) -> int:
+    """An upper bound on the length of a stream that decodes ok to at most
+    out_cap bytes: a sequence's token, offset and length bytes take at
+    most its match bytes plus a 255th of its literals, the last one's two
+    bytes more."""
+    return out_cap + out_cap // 255 + 16
+
+
 def decode_block_host(comp: bytes, out_cap: int, device=None) -> bytes:
     """Decode one LZ4 block stream of at most out_cap (<= 4 MiB) bytes on
     the device, CUDA unless device="cpu"; raises ErrDecompress on a corrupt
@@ -101,8 +118,10 @@ def decode_block_host(comp: bytes, out_cap: int, device=None) -> bytes:
     from ..parallel.batch import resolve_device
 
     dev = resolve_device(device)
-    C = max(16, (len(comp) + 8 + 3) & ~3)
     out_cap = (out_cap + 3) & ~3
+    if bw_fits(out_cap) and len(comp) > max_stream(out_cap):
+        raise zerr.ErrDecompress  # longer than any stream K1 calls ok
+    C = max(16, (len(comp) + 8 + 3) & ~3)
     buf = np.zeros((1, C), dtype=np.uint8)
     buf[0, :len(comp)] = np.frombuffer(comp, dtype=np.uint8)
     out, n, ok = decode_batch(
@@ -127,7 +146,9 @@ def decode_batch_dict(comp: torch.Tensor, clens: torch.Tensor,
     uint8 holds the dictionary right-aligned, its last dlen bytes usable;
     C, D and out_cap multiples of 4, out_cap and D <= 64 KiB. Returns (out
     (B, out_cap) uint8, n_out (B,) int32, ok (B,) bool); bytes past n_out
-    are undefined. Reads past C return 0. On CUDA tensors it launches K3 on
+    are undefined. Reads past C return 0. K3 needs C + D + out_cap +
+    RING_SMEM + ROW_PAD bytes of shared memory (the batch layer's 64 KiB
+    rows, window and blocks: 230,704). On CUDA tensors it launches K3 on
     the current stream without synchronising; on CPU tensors it runs the
     plain version."""
     global dict_launches
@@ -138,7 +159,8 @@ def decode_batch_dict(comp: torch.Tensor, clens: torch.Tensor,
         raise ValueError("dict_buf must be a (D,) uint8 tensor")
     D = dict_buf.shape[0]
     if (C % 4 or D % 4 or out_cap % 4 or not 0 < out_cap <= MAX_OUT
-            or not 0 < D <= MAX_WINDOW or C + D + out_cap > MAX_SMEM):
+            or not 0 < D <= MAX_WINDOW
+            or C + D + out_cap > MAX_SMEM - RING_SMEM - ROW_PAD):
         raise ValueError(f"row widths C={C}, D={D}, out_cap={out_cap}: need "
                          f"multiples of 4, 0 < out_cap, D <= {MAX_OUT}")
     if (clens.shape != (B,) or clens.dtype != torch.int32

@@ -350,6 +350,48 @@ def test_decode_dict_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", ["short-offsets", "ring-wrap",
+                                  "clen-over-C", "out-cap"])
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+def test_decode_kernels_edge_batches_match_plain(cuda, kernel, name):
+    """K1 and K3 on corpus.decode_edge_batches: short offsets at a row's
+    start, rows that wrap the parse's ring of 2,048 sequences, clen past
+    the row's width, streams that pass out_cap."""
+    rows, clens, cap, win = (torch.from_numpy(x) if isinstance(x, np.ndarray)
+                             else x for x in
+                             corpus.decode_edge_batches()[name])
+    if kernel == "K1":
+        before = decode.launches
+        kern = decode.decode_batch(rows.to(cuda), clens.to(cuda), cap)
+        assert decode.launches == before + 1
+        plain = decode.decode_batch_plain(rows, clens, cap)
+    else:
+        d = torch.from_numpy(np.frombuffer(win, np.uint8).copy())
+        before = decode.dict_launches
+        kern = decode.decode_batch_dict(rows.to(cuda), clens.to(cuda),
+                                        d.to(cuda), len(win), cap)
+        assert decode.dict_launches == before + 1
+        plain = decode.decode_batch_dict_plain(rows, clens, d, len(win), cap)
+    _same_rows(kern, plain, plain[1])
+
+
+@pytest.mark.gpu
+def test_decode_kernel_widest_rows_match_plain(cuda):
+    """K1 at 96 KiB blocks, the widest rows the batch layer passes: the
+    most shared memory (the ring and 196,624 B of rows)."""
+    cap = decode.BW_MAX_OUT
+    text = corpus.silesia_like(3 * cap, seed=5)
+    streams = [native.compress(text[i:i + cap], level=1)
+               for i in range(0, 3 * cap, cap)]
+    streams.append(streams[0][:len(streams[0]) // 2])
+    rows, clens = _rows(streams, cap + decode.ROW_SLACK)
+    kern = decode.decode_batch(rows.to(cuda), clens.to(cuda), cap)
+    plain = decode.decode_batch_plain(rows, clens, cap)
+    assert plain[2][:3].all() and not plain[2][3]
+    _same_rows(kern, plain, plain[1])
+
+
+@pytest.mark.gpu
 def test_decode_records_kernel_matches_plain(cuda):
     text = corpus.silesia_like(8 * N, seed=11)
     dict_ = text[-3000:]
