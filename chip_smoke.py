@@ -24,10 +24,16 @@ kernels:
   * the whole-block codec at full width: the 256 MiB as 64 rows of 4 MiB
     through one launch of the packed-word encode kernel K6b (greedy, and
     the depth-2 chain for a level-8 request) and one of the packed-word
-    decode kernel K6a, framed as a standard 4 MiB frame;
+    decode kernel K6a, framed as a standard 4 MiB frame; K6b is also held
+    to its plain version on the greedy and chain edge rows at the first
+    widths it takes (corpus.wide_edge_rows), and the phase prints K6b's and
+    K7's times beside their bounds (K7's chain bound from a probe of
+    tools/xxh32_stamps_torch.py) and its peak device memory;
   * block checksums: a 256 MiB frame of 64 KiB blocks whose checksums are
     hashed on the device by K7 on write and on read, and 32 MiB frames at
-    4 MiB blocks and with a dictionary.
+    4 MiB blocks and with a dictionary; K7 is also held to its plain
+    version and native.xxh32 on rows whose starts fall off 16-byte
+    boundaries, at lengths on and beside its 4 KiB staging chunks.
 
     python3 chip_smoke.py
 
@@ -41,6 +47,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -959,6 +966,13 @@ def main() -> int:
     edge_blocks = [main_data[:n] for n in range(41)] + [main_data[:BLOCK]]
     edge_rows = tuple(torch.from_numpy(x)
                       for x in rows_of(edge_blocks, BLOCK + 3))
+    # rows whose starts fall off 16-byte boundaries (every residue of the
+    # width mod 4 and mod 16; 65,860 is CAP of a 64 KiB row), at lengths on
+    # and beside K7's 4 KiB staging chunks
+    xxh_blocks = edge_blocks[:41] + [main_data[:n] for n in (
+        4095, 4096, 4097, 8191, 8192, 8193, 16383, 16384, 16385, 65535,
+        BLOCK)]
+    xxh_widths = (65537, 65538, 65539, 65544, 65548, encode.out_width(BLOCK))
     k7_err = 0
     for seed in (0, 0x9E3779B1):
         p_ms, e1 = hash_both(main_host, seed, f"{ROWS} main-path rows",
@@ -971,6 +985,27 @@ def main() -> int:
         e3 = hash_both(edge_rows, seed, "lengths 0-40 and 65,536 in rows of "
                        "65,539 bytes", edge_blocks)[1]
         k7_err = max(k7_err, e1, e2, e3)
+        want = [native.xxh32(b, seed) for b in xxh_blocks]
+        plain = None
+        for W in xxh_widths:
+            a, n = rows_of(xxh_blocks, W)
+            if plain is None:
+                plain = xxh32.xxh32_batch_plain(torch.from_numpy(a),
+                                                torch.from_numpy(n), seed)
+            # the rows on the card at their allocation's start and 3 bytes
+            # into it: row r starts at off + r W
+            flat = torch.zeros(a.size + 3, dtype=torch.uint8, device=dev)
+            for off in (0, 3):
+                flat[off:off + a.size] = torch.from_numpy(a).view(-1).to(dev)
+                kern = xxh32.xxh32_batch(flat[off:off + a.size].view(a.shape),
+                                         torch.from_numpy(n).to(dev),
+                                         seed).cpu()
+                err = int((kern - plain).abs().max())
+                check(err == 0 and plain.tolist() == want,
+                      f"K7 equals plain and native.xxh32 on chunk-edge "
+                      f"lengths in rows of {W} bytes at offset {off}, seed "
+                      f"{seed:#x} (max abs err {err})")
+                k7_err = max(k7_err, err)
     main_dev = [x.to(dev) for x in main_host]
     k7_ms = cuda_ms(lambda: xxh32.xxh32_batch(*main_dev), 20)
     k7_bound = bound_ms(ROWS * BLOCK + 4 * ROWS + 8 * ROWS,
@@ -1013,6 +1048,16 @@ def main() -> int:
                          torch.tensor([BLOCK, 999], dtype=torch.int32))
             errs.append(run(args, f"the first K6b width {W} after a "
                                   f"{Dw}-byte window")[4])
+        # the greedy or chain edge rows at the first K6b widths, alone and
+        # at the end of full rows, plain and after their 64 KiB windows
+        (eb, en), (wb, wn, wwins, wwl) = corpus.wide_edge_rows(mid_mode)
+        errs.append(run(tuple(torch.from_numpy(x) for x in rows_of(eb, en)),
+                        f"{len(eb)} edge rows of {en} bytes")[4])
+        errs.append(run(tuple(torch.from_numpy(x) for x in rows_of(wb, wn))
+                        + (torch.from_numpy(np.stack(
+                            [np.frombuffer(w, np.uint8) for w in wwins])),
+                           torch.tensor(wwl, dtype=torch.int32)),
+                        f"{len(wb)} far-window edge rows of {wn} bytes")[4])
         k6b[mid_mode] = (p_ms, max(errs), p_big)
         if not mid_mode:
             k6b_256 = k256
@@ -1073,6 +1118,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return r
 
+    torch.cuda.reset_peak_memory_stats()
     n_wide = len(main_data) // BIG
     wd = torch.from_numpy(np.frombuffer(main_data, np.uint8).reshape(
         n_wide, BIG).copy()).to(dev)
@@ -1145,6 +1191,24 @@ def main() -> int:
                          + 5 * n_wide, OPS_PER_BYTE * len(main_data))
     print(f"ms per {n_wide} x 4 MiB launch [{smi}]: K6b greedy "
           f"{k6b_ms:.1f}, K6b mid {k6b_mid_ms:.1f}, K6a {k6a_ms:.1f}")
+    peak17 = torch.cuda.max_memory_allocated()
+    # K7's chain bound: a row's stripes x the cycles of one accumulator's
+    # step (each accumulator takes every stripe in turn; a probe kernel of
+    # tools/xxh32_stamps_torch.py) / the SM clock measured beside it
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import xxh32_stamps_torch
+
+    k7_chain = xxh32_stamps_torch.chain_bound_ms(xxh32_stamps_torch.load(),
+                                                 BLOCK // 16)
+    print(f"phase 17 [{smi}]: K6b greedy {k6b_ms:.3f} ms per {n_wide} x "
+          f"4 MiB launch (bound {k6b_bound[0]:.4f} ms by {k6b_bound[1]}), "
+          f"K6b depth 2 {k6b_mid_ms:.3f} (bound {k6b_mid_bound[0]:.4f} by "
+          f"{k6b_mid_bound[1]}); K7 {k7_ms:.4f} ms per {ROWS} x 64 KiB "
+          f"(bound {k7_bound[0]:.4f} by {k7_bound[1]}, chain bound "
+          f"{k7_chain[0]:.4f}: {BLOCK // 16} stripes x {k7_chain[1]:.2f} "
+          f"cycles / {k7_chain[2]:.0f} MHz); peak device memory of this "
+          f"phase {peak17 / 2**20:.1f} MiB")
     del wd, wl, wout, comp, mtot
     torch.cuda.empty_cache()
 
@@ -1210,7 +1274,10 @@ def main() -> int:
     print(f"block checksums [{smi}]: encode {gb / (t_encc / 1e3):.3f} GB/s, "
           f"decode {gb / (t_decc / 1e3):.3f} GB/s through Writer/Reader; "
           f"frame ratio {len(main_data) / len(frame_c):.4f}; K7 launches "
-          f"{k7_enc} + {k7_dec}")
+          f"{k7_enc} + {k7_dec}, K7's share of the walls at "
+          f"{k7_ms:.4f} ms a launch: encode "
+          f"{100 * k7_enc * k7_ms / t_encc:.2f}%, decode "
+          f"{100 * k7_dec * k7_ms / t_decc:.2f}%")
     del frame_c, back_c, native_c, bad
     for name, o in (("4 MiB blocks", dict(block_checksum=True, level=1)),
                     ("a dictionary", dict(optsc, dictionary=dict64))):

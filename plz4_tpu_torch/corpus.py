@@ -368,6 +368,44 @@ def greedy_edge_rows(seed: int = 7) -> tuple[dict, dict]:
     return plain, windowed
 
 
+# the first row width at which each route takes K6b, plain and after a
+# 64 KiB window (ops.encode.bw_fits keeps a row 4 bytes narrower on the
+# byte-wide kernels): (mid, window bytes) -> width
+WIDE_EDGE = {(False, 0): 101144, (True, 0): 109320, (False, 65536): 68440,
+             (True, 65536): 76616}
+
+
+def wide_edge_rows(mid: bool, seed: int = 11) -> tuple[tuple, tuple]:
+    """The rows aimed at the greedy (greedy_edge_rows) or the chain
+    (chain_edge_rows, mid) parse's steps, at the first width at which K6b
+    takes them, whose parse reads its row in device memory:
+    ((blocks, N), (blocks, N, windows, wlens)).
+
+    Each plain edge block comes twice at width N = WIDE_EDGE[mid, 0]:
+    alone at the row's start, and at the end of a row of N bytes led by
+    fresh bytes, so that its last steps meet the end of the row. Each
+    windowed block (copies from its 64 KiB window 65,534-65,536 bytes back)
+    comes alone and followed by fresh bytes to the full width
+    WIDE_EDGE[mid, 65536], after its window."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n: int) -> bytes:
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    plain, windowed = chain_edge_rows() if mid else greedy_edge_rows()
+    N = WIDE_EDGE[mid, 0]
+    blocks = []
+    for b in plain.values():
+        blocks += [b, rand(N - len(b)) + b]
+    Nw = WIDE_EDGE[mid, 65536]
+    wblocks, wins, wlens = [], [], []
+    for b, win, wlen in windowed.values():
+        wblocks += [b, b + rand(Nw - len(b))]
+        wins += [win, win]
+        wlens += [wlen, wlen]
+    return (blocks, N), (wblocks, Nw, wins, wlens)
+
+
 # output positions, offsets and match lengths of decode_edge_batches'
 # short-offset rows
 SHORT_OFFS = tuple(range(1, 65))

@@ -9,8 +9,10 @@
 
 #if defined(__CUDACC__)
 #define LZ4T_HD __host__ __device__ __forceinline__
+#define LZ4T_HDM __host__ __device__ __forceinline__  // member functions
 #else
 #define LZ4T_HD static inline
+#define LZ4T_HDM inline
 #endif
 
 // Parse constants of the greedy encoder (ops/encode.py keeps the Python
@@ -40,3 +42,39 @@ LZ4T_HD int lz4t_varint_z(const uint8_t* c, int C, int p, int* len) {
   *len = t;
   return p;
 }
+
+#if defined(__CUDACC__)
+// mbarriers in shared memory: the full/empty hand-over of the rings
+// (lz4_decode_ring.cuh, lz4_encode_wide.cuh)
+
+__device__ __forceinline__ uint32_t lz4t_smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void lz4t_mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   lz4t_smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void lz4t_mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   lz4t_smem_addr(bar))
+               : "memory");
+}
+
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void lz4t_mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(lz4t_smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+#endif  // __CUDACC__

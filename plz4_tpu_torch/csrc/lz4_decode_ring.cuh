@@ -148,37 +148,6 @@ LZ4T_HD void lz4t_parse_strict(const uint32_t* cw, int C, int clen, int dlen,
 
 #if defined(__CUDACC__)
 
-__device__ __forceinline__ uint32_t lz4t_smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void lz4t_mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
-                   lz4t_smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void lz4t_mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   lz4t_smem_addr(bar))
-               : "memory");
-}
-
-// wait until the barrier's phase of this parity has completed
-__device__ __forceinline__ void lz4t_mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(lz4t_smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // The parse's side of the ring: sequence k goes to entry k % 32 of slot
 // (k / 32) % LZ4T_RING_BATCHES (a power of 2), that is to ring[k % (32
 // LZ4T_RING_BATCHES)].

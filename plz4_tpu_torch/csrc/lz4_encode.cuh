@@ -39,10 +39,14 @@
 // vtab[h] always equals the word at tab[h] - 1: kVtab = false re-reads it
 // there instead, which halves the tables' shared memory.
 //
-// Two bodies give these bytes. lz4t_encode_row is the serial one: K6b's
-// (with the value table and its emit) and the host build's reference for
-// the lanes' body. lz4t_encode_row_lanes is K2a's and K2b's: one warp
-// parses, the sequences are stored, and lz4t_seq_emit writes them.
+// Two bodies give these bytes. lz4t_encode_row is the serial one, the host
+// build's reference for the lanes' body (lz4t_host_encode_serial, and
+// lz4t_host_encode_wide_serial with K6b's value table and emit); no
+// kernel runs it. lz4t_encode_row_lanes is K2a's, K2b's and K6b's: one warp
+// parses and hands each sequence to a sink, K2a's and K2b's a stored list
+// (lz4t_seq_store) that lz4t_seq_emit writes, K6b's a ring in shared
+// memory that emit warps write from while the parse goes on
+// (lz4_encode_wide.cuh).
 #pragma once
 
 #include "lz4_common.cuh"
@@ -312,6 +316,17 @@ LZ4T_HD void lz4t_seq_put(int* seq, int k, int op, int mip, int mlen,
 #endif
 }
 
+// The lanes' bodies' sink of K2a-K2d: the parse's lane 0 hands it
+// sequence k (op, mip, mlen, mpos), in order, and it stores it as sequence k
+// of seq. (A sink with kAllLanes, K6b's ring, is called by every lane.)
+struct lz4t_seq_store {
+  static constexpr bool kAllLanes = false;
+  int* seq;
+  LZ4T_HDM void operator()(int k, int op, int mip, int mlen, int mpos) {
+    lz4t_seq_put(seq, k, op, mip, mlen, mpos);
+  }
+};
+
 // Write the k sequences of seq (stored by a lanes' parse) into o, thread t
 // of nt taking sequences t, t + nt, ...: sequence i's literals start where
 // sequence i - 1's match ends (at base for the first), and each writes
@@ -342,15 +357,16 @@ LZ4T_HD int lz4t_fwd_words(const uint32_t* u, const uint32_t* x, int lim) {
   return lz4t_min(fw, lim) | (fw == 8) << 16;
 }
 
-// The greedy parse of one row by the 32 lanes of a warp (K2a, K2b): the
-// bytes of lz4t_encode_row. w is the row as u32 words, DT = base + N + 8
-// bytes plus the word after them (n block bytes at base, zero after the
-// block's N); OT = CAP output bytes; tab: the 2^14-entry position table,
-// zeroed and preloaded with the window; own: 2^14 bytes of scratch (any
-// contents). The sequences go to seq as (op, mip, mlen, mip - mpos), each
-// at the output position op where lz4t_emit_sequence would write it, the
-// final literals last as (op, end, 0, 0); lz4t_seq_emit writes them.
-// Returns their count.
+// The greedy parse of one row by the 32 lanes of a warp (K2a, K2b, K6b):
+// the bytes of lz4t_encode_row<kVtab, kGuard>. w is the row as u32 words,
+// DT = base + N + 8 bytes plus the word after them (n block bytes at base,
+// zero after the block's N); OT = CAP output bytes; tab: the 2^14-entry
+// position table, zeroed and preloaded with the window; own: 2^14 bytes of
+// scratch (any contents). The sink gets each sequence k that the emit
+// writes as sink(k, op, mip, mlen, mpos), in order, op the output position
+// where lz4t_emit<kGuard> writes it, the final literals last as (op, end,
+// 0, end), from lane 0 (from every lane where Sink::kAllLanes). Returns
+// their count.
 //
 // Why the lanes give the serial parse's bytes: positions enter the table
 // exactly once each and in increasing order. The window preload inserts
@@ -390,16 +406,21 @@ LZ4T_HD int lz4t_fwd_words(const uint32_t* u, const uint32_t* x, int lim) {
 // mismatch, matchlimit or anchor / first: the serial loops' lengths. The
 // parse emits nothing: it keeps the output position op by the emit's
 // arithmetic (the room guard, overflow and the final literals' two guards)
-// and stores each sequence with its op. Words come from the u32-aligned
+// and hands each sequence with its op to the sink. kGuard = false keeps
+// op as lz4t_emit_sequence_clipped advances it (no room guard: every
+// sequence is handed over, op grows by its bytes); kGuard = true as
+// lz4t_emit_sequence (a refused sequence is not handed over and sets op =
+// OT). Words come from the u32-aligned
 // row by aligned loads and funnel shifts: a position at most mflimit, or a
 // stored one (at most nip - 2 <= end - 7, or below base), reads words
 // inside the row or the one word after it, which the shift drops; a lane
 // past mflimit, whose reads decide nothing, reads at DT - 12 at most.
 #define LZ4T_SCALAR_TRIES 3
 
+template <bool kGuard = true, class Sink>
 LZ4T_HD int lz4t_encode_row_lanes(const uint32_t* w, int DT, int base,
                                   int first, int n, int OT, uint32_t* tab,
-                                  uint8_t* own, int* seq, int* total_out,
+                                  uint8_t* own, Sink& sink, int* total_out,
                                   int* ok_out) {
   const uint8_t* c = reinterpret_cast<const uint8_t*>(w);
   const int end = base + n;
@@ -407,7 +428,7 @@ LZ4T_HD int lz4t_encode_row_lanes(const uint32_t* w, int DT, int base,
   const int matchlimit = end - 5;
   const int out_limit = OT - 16;
   const int clip = DT - 4;
-  const bool lead = lz4t_lead();
+  const bool put = Sink::kAllLanes || lz4t_lead();
   int ip = base, anchor = base, op = 0, nseq = 0;
   int overflow = n < 0;
   uint32_t u0[3];  // the words at sip, sip + 4 and sip + 8
@@ -544,10 +565,11 @@ LZ4T_HD int lz4t_encode_row_lanes(const uint32_t* w, int DT, int base,
     const int mip = sip - back, mlen = 4 + back + fwd;
     const int nip = mip + mlen;
     const int lit = mip - anchor;
-    // the emit's output position; the room guard refuses the sequence with
-    // op = OT
-    const int refused = op + lit + (lit >> 8) + (mlen >> 8) + 32 > OT;
-    if (lead && !refused) lz4t_seq_put(seq, nseq, op, mip, mlen, cand - back);
+    // the emit's output position; the room guard (kGuard) refuses the
+    // sequence with op = OT
+    const int refused =
+        kGuard && op + lit + (lit >> 8) + (mlen >> 8) + 32 > OT;
+    if (put && !refused) sink(nseq, op, mip, mlen, cand - back);
     const int nb = lz4t_seq_bytes(lit, mlen);
     nseq += !refused;
     op = refused ? OT : op + nb;
@@ -561,10 +583,10 @@ LZ4T_HD int lz4t_encode_row_lanes(const uint32_t* w, int DT, int base,
   }
   const int rest = end - anchor;
   if (overflow || op + rest + rest / 255 + 16 > OT ||
-      op + rest + (rest >> 8) + 32 > OT) {
+      (kGuard && op + rest + (rest >> 8) + 32 > OT)) {
     op = OT;
   } else {
-    if (lead) lz4t_seq_put(seq, nseq, op, end, 0, end);
+    if (put) sink(nseq, op, end, 0, end);
     nseq++;
     op += lz4t_seq_bytes(rest, 0);
   }

@@ -105,8 +105,9 @@ __global__ void __launch_bounds__(kThreads)
   int* count = seq + 4 * (N / 4 + 1);
   if (threadIdx.x < 32) {
     int total, okv;
+    lz4t_seq_store sink = {seq};
     const int k = lz4t_encode_mid_row_lanes<kDepth>(
-        roww, DT, D, first, lens[r], CAP, t, seq, &total, &okv);
+        roww, DT, D, first, lens[r], CAP, t, sink, &total, &okv);
     if (threadIdx.x == 0) {
       *count = total < CAP ? k : 0;
       totals[r] = total;

@@ -25,16 +25,18 @@
 //     kGuard = false the emit of the packed-word kernel _encode_kernel in mid
 //     mode (K6b: depth 2 only, no room guard, writes clipped at OT - 1).
 //
-// K2c and K2d run the parse on the 32 lanes of one warp
-// (lz4t_encode_mid_row_lanes); K6b keeps the serial body
-// (lz4t_encode_mid_row<2, false>). The lanes' body gives the serial one's
-// bytes because, in mid mode, positions enter the tables exactly once each
-// and in increasing order: the window preload inserts first, first +
-// wstride, ... below base; the scan inserts each scanned sip before it
-// scores it; after a match only nip - 2 is inserted, where nip - 2 >= sip +
-// 2 for the sip that found the match (mlen >= 4 + back), and the next scan
-// starts at nip. So at sip the candidates are the kDepth newest inserted
-// positions of sip's bucket below sip, newest first.
+// K2c, K2d and K6b run the parse on the 32 lanes of one warp
+// (lz4t_encode_mid_row_lanes); the serial body (lz4t_encode_mid_row) is
+// the host build's reference for it (lz4t_host_encode_mid_serial, and
+// lz4t_host_encode_wide_serial at <2, false). The lanes' body gives the
+// serial one's bytes because, in mid mode, positions enter the tables
+// exactly once each and in increasing order: the window preload inserts
+// first, first + wstride, ... below base; the scan inserts each scanned
+// sip before it scores it; after a match only nip - 2 is inserted, where
+// nip - 2 >= sip + 2 for the sip that found the match (mlen >= 4 + back),
+// and the next scan starts at nip. So at sip the candidates are the
+// kDepth newest inserted positions of sip's bucket below sip, newest
+// first.
 //
 // A scan step takes kPos = 32 / kDepth positions ip .. ip + kPos - 1
 // (those past mflimit sit out), kDepth lanes each. If positions 0 .. k - 1
@@ -60,10 +62,12 @@
 // taking the ballot's first mismatch, matchlimit or anchor / first: the
 // serial loops' lengths. The parse emits nothing: it keeps the output
 // position op by the emit's arithmetic (room guard, overflow and the
-// final literals as lz4t_encode_mid_row) and stores each sequence with its
-// op, and lz4t_seq_emit (lz4_encode.cuh) writes them afterwards, all at
-// once, wherever the row's total is below the overflow sentinel OT (ok or
-// not: the large-block path stitches a chunk that did not shrink). The
+// final literals as lz4t_encode_mid_row<kDepth, kGuard>) and hands each
+// sequence with its op to a sink: K2c and K2d store them and
+// lz4t_seq_emit (lz4_encode.cuh) writes them afterwards, all at once,
+// wherever the row's total is below the overflow sentinel OT (ok or not:
+// the large-block path stitches a chunk that did not shrink); K6b's emit
+// warps write them from a ring while the parse goes on. The
 // words come from the u32-aligned row by aligned loads and funnel shifts;
 // a word read at DT - 4 reads one word past the row, which its shift
 // drops.
@@ -255,14 +259,16 @@ LZ4T_HD uint32_t lz4t_mid_key(uint32_t u, int live, int lane) {
 // The parse of one row by the 32 lanes of a warp: w, the row as u32
 // words, DT = base + N + 8 bytes plus the word after them (n block bytes
 // at base, zero after the block's N); OT = CAP output bytes; t: kDepth
-// 2^13-entry tables, zeroed and preloaded with the window. The sequences
-// go to seq as (op, mip, mlen, mip - mpos), each at the output position
-// op where lz4t_emit_sequence would write it, the final literals last as
-// (op, end, 0, 0); lz4t_seq_emit writes them. Returns their count.
-template <int kDepth>
+// 2^13-entry tables, zeroed and preloaded with the window. The sink gets
+// each sequence k that the emit writes (kGuard = false: every one) as
+// sink(k, op, mip, mlen, mpos), in order, op the output position where
+// lz4t_emit<kGuard> writes it, the final literals last as (op, end, 0,
+// end), from lane 0 (from every lane where Sink::kAllLanes). Returns their
+// count.
+template <int kDepth, bool kGuard = true, class Sink>
 LZ4T_HD int lz4t_encode_mid_row_lanes(const uint32_t* w, int DT, int base,
                                       int first, int n, int OT,
-                                      const lz4t_mid_tabs& t, int* seq,
+                                      const lz4t_mid_tabs& t, Sink& sink,
                                       int* total_out, int* ok_out) {
   const uint8_t* c = reinterpret_cast<const uint8_t*>(w);
   const int end = base + n;
@@ -270,6 +276,7 @@ LZ4T_HD int lz4t_encode_mid_row_lanes(const uint32_t* w, int DT, int base,
   const int matchlimit = end - 5;
   const int out_limit = OT - 16;
   const int clip = DT - 4;
+  const bool put = Sink::kAllLanes || lz4t_lead();
   int ip = base, anchor = base, op = 0, nseq = 0;
   int overflow = n < 0;
   // a scan step takes kPos positions, kDepth lanes each: lane i scores
@@ -394,13 +401,11 @@ LZ4T_HD int lz4t_encode_mid_row_lanes(const uint32_t* w, int DT, int base,
     const int mip = sip - back, mlen = 4 + back + fwd;
     const int nip = mip + mlen;
     const int lit = mip - anchor;
-    // the emit's output position, and the room guard
-    if (op + lit + (lit >> 8) + (mlen >> 8) + 32 > OT) {
+    // the emit's output position, and the room guard (kGuard)
+    if (kGuard && op + lit + (lit >> 8) + (mlen >> 8) + 32 > OT) {
       op = OT;
     } else {
-      lz4t_lanes_out([&](int i) {
-        if (i == 0) lz4t_seq_put(seq, nseq, op, mip, mlen, cand - back);
-      });
+      if (put) sink(nseq, op, mip, mlen, cand - back);
       nseq++;
       op += lz4t_seq_bytes(lit, mlen);
     }
@@ -419,12 +424,10 @@ LZ4T_HD int lz4t_encode_mid_row_lanes(const uint32_t* w, int DT, int base,
   }
   const int rest = end - anchor;
   if (overflow || op + rest + rest / 255 + 16 > OT ||
-      op + rest + (rest >> 8) + 32 > OT) {
+      (kGuard && op + rest + (rest >> 8) + 32 > OT)) {
     op = OT;
   } else {
-    lz4t_lanes_out([&](int i) {
-      if (i == 0) lz4t_seq_put(seq, nseq, op, end, 0, end);
-    });
+    if (put) sink(nseq, op, end, 0, end);
     nseq++;
     op += lz4t_seq_bytes(rest, 0);
   }

@@ -66,8 +66,9 @@ __global__ void __launch_bounds__(kThreads)
   int* count = seq + 4 * (N / 4 + 1);
   if (threadIdx.x < 32) {
     int total, okv;
+    lz4t_seq_store sink = {seq};
     const int k = lz4t_encode_row_lanes(roww, DT, D, first, lens[r], CAP,
-                                        tab, own, seq, &total, &okv);
+                                        tab, own, sink, &total, &okv);
     if (threadIdx.x == 0) {
       *count = total < CAP ? k : 0;
       totals[r] = total;

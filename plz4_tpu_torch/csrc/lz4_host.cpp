@@ -17,6 +17,7 @@
 #include "lz4_encode.cuh"
 #include "lz4_encode_deep.cuh"
 #include "lz4_encode_mid.cuh"
+#include "lz4_encode_wide.cuh"
 #include "xxh32.cuh"
 
 // Stage row r of a window launch: [the last Dc bytes of its D-byte window |
@@ -60,9 +61,10 @@ static void encode_greedy(const uint8_t* data, const int32_t* lens,
                              tab.data(), nullptr, &total, &okv);
     } else {
       memcpy(w.data(), row.data(), DT);
+      lz4t_seq_store sink = {seq.data()};
       const int k = lz4t_encode_row_lanes(w.data(), DT, D, first, lens[r],
-                                          CAP, tab.data(), own.data(),
-                                          seq.data(), &total, &okv);
+                                          CAP, tab.data(), own.data(), sink,
+                                          &total, &okv);
       if (total < CAP)
         lz4t_seq_emit(row.data(), o, CAP, D, seq.data(), k, 0, 1);
     }
@@ -124,9 +126,9 @@ static void encode_mid_row(const std::vector<uint8_t>& row,
       return;
     }
   }
+  lz4t_seq_store sink = {seq.data()};
   const int k = lz4t_encode_mid_row_lanes<kDepth>(w.data(), DT, D, first, n,
-                                                  CAP, t, seq.data(), total,
-                                                  okv);
+                                                  CAP, t, sink, total, okv);
   if (*total < CAP) lz4t_seq_emit(row.data(), o, CAP, D, seq.data(), k, 0, 1);
 }
 
@@ -406,41 +408,123 @@ extern "C" void lz4t_host_decode_records(const uint8_t* rows,
   }
 }
 
+// K6b's ring (lz4_encode_wide.cuh) on the host: the parse's sink fills
+// LZ4T_WRING_BATCHES slots of 32 sequences, storing each batch's first
+// anchor, and where the card's parse would wait for a free slot, the
+// oldest published batch is written (by LZ4T_WRING_WARPS emit warps, the
+// last first). A batch is written as it was when it was published, and
+// its slot is poisoned once written.
+struct host_wring {
+  static constexpr bool kAllLanes = true;
+  const uint8_t* c;
+  uint8_t* o;
+  int OT;
+  int anchor;
+  std::vector<int> slots = std::vector<int>(LZ4T_WRING_BATCHES * 128);
+  std::vector<int> published = slots;  // each slot as published
+  int cnt[LZ4T_WRING_BATCHES], anc[LZ4T_WRING_BATCHES];
+  int pub = 0, written = 0;
+  void write_oldest() {
+    const int s = written % LZ4T_WRING_BATCHES;
+    int* e = published.data() + s * 128;
+    for (int wi = LZ4T_WRING_WARPS - 1; wi >= 0; wi--)
+      lz4t_wseq_batch<LZ4T_WRING_WARPS>(c, o, OT, e, cnt[s], anc[s], wi);
+    memset(e, 0xA5, 128 * sizeof(int));
+    memset(slots.data() + s * 128, 0xA5, 128 * sizeof(int));
+    written++;
+  }
+  void open(int b) {
+    while (b - written >= LZ4T_WRING_BATCHES) write_oldest();
+    anc[b % LZ4T_WRING_BATCHES] = anchor;
+  }
+  void publish(int b, int n) {
+    const int s = b % LZ4T_WRING_BATCHES;
+    cnt[s] = n;
+    memcpy(published.data() + s * 128, slots.data() + s * 128,
+           128 * sizeof(int));
+    pub++;
+  }
+  void operator()(int k, int op, int mip, int mlen, int mpos) {
+    if (!(k & 31)) open(k >> 5);
+    lz4t_seq_put(slots.data() + (k >> 5) % LZ4T_WRING_BATCHES * 128, k & 31,
+                 op, mip, mlen, mpos);
+    anchor = mip + mlen;
+    if ((k & 31) == 31) publish(k >> 5, 32);
+  }
+  void finish(int k) {
+    if (!(k & 31)) open(k >> 5);
+    publish(k >> 5, k & 31);
+    while (written < pub) write_oldest();
+  }
+};
+
 // K6b: lz4_encode_wide.cu. Rows are [window D | block | 8 zero bytes]; the
-// window preload inserts every usable position in order.
-extern "C" void lz4t_host_encode_wide(const uint8_t* rows, const int32_t* lens,
-                                      const int32_t* wlens, uint8_t* out,
-                                      int32_t* totals, uint8_t* ok, int R,
-                                      int DT, int D, int CAP, int mid) {
+// window preload inserts every usable position in order. Each row is read
+// from a copy of exactly DT bytes and the one word after them that the
+// parse may read (zero), so a read past it shows under AddressSanitizer;
+// serial runs the serial bodies (lz4t_encode_row<true, false> with the
+// value table, lz4t_encode_mid_row<2, false>) instead of the lanes' parse
+// and the ring.
+static void encode_wide(const uint8_t* rows, const int32_t* lens,
+                        const int32_t* wlens, uint8_t* out, int32_t* totals,
+                        uint8_t* ok, int R, int DT, int D, int CAP, int mid,
+                        int serial) {
   std::vector<uint32_t> tabs(2 << LZ4T_HASH_LOG);
+  std::vector<uint8_t> own(1 << LZ4T_HASH_LOG);
   for (int r = 0; r < R; r++) {
     memset(tabs.data(), 0, tabs.size() * 4);
-    const uint8_t* c = rows + (size_t)r * DT;
+    std::vector<uint32_t> w(DT / 4 + 1);
+    memcpy(w.data(), rows + (size_t)r * DT, DT);
+    const uint8_t* c = reinterpret_cast<const uint8_t*>(w.data());
+    uint8_t* o = out + (size_t)r * CAP;
     const int first = lz4t_window_first(wlens, r, D);
+    const int T = 1 << LZ4T_MID_HASH_LOG;
+    const lz4t_mid_tabs t = {tabs.data(), tabs.data() + T, nullptr, nullptr};
+    uint32_t* tab = tabs.data();
     int total, okv;
-    if (mid) {
-      const int T = 1 << LZ4T_MID_HASH_LOG;
-      const lz4t_mid_tabs t = {tabs.data(), tabs.data() + T, nullptr,
-                               nullptr};
+    if (mid)
       lz4t_mid_preload<2>(c, D, first, 1, t);
-      lz4t_encode_mid_row<2, false>(c, DT, D, first, lens[r],
-                                    out + (size_t)r * CAP, CAP, t, &total,
-                                    &okv);
-    } else {
-      uint32_t* tab = tabs.data();
+    else
+      lz4t_window_preload(c, D, first, 1, tab);
+    if (serial && mid) {
+      lz4t_encode_mid_row<2, false>(c, DT, D, first, lens[r], o, CAP, t,
+                                    &total, &okv);
+    } else if (serial) {
       uint32_t* vtab = tab + (1 << LZ4T_HASH_LOG);
-      for (int p = first; p < D; p++) {
-        const uint32_t u = lz4t_rd32(c, p);
-        tab[lz4t_hash(u)] = (uint32_t)(p + 1);
-        vtab[lz4t_hash(u)] = u;
-      }
-      lz4t_encode_row<true, false>(c, DT, D, first, lens[r],
-                                   out + (size_t)r * CAP, CAP, tab, vtab,
-                                   &total, &okv);
+      for (int h = 0; h < (1 << LZ4T_HASH_LOG); h++)
+        vtab[h] = tab[h] ? lz4t_rd32(c, (int)tab[h] - 1) : 0;
+      lz4t_encode_row<true, false>(c, DT, D, first, lens[r], o, CAP, tab,
+                                   vtab, &total, &okv);
+    } else {
+      host_wring ring = {c, o, CAP, D};
+      const int k =
+          mid ? lz4t_encode_mid_row_lanes<2, false>(w.data(), DT, D, first,
+                                                    lens[r], CAP, t, ring,
+                                                    &total, &okv)
+              : lz4t_encode_row_lanes<false>(w.data(), DT, D, first, lens[r],
+                                             CAP, tab, own.data(), ring,
+                                             &total, &okv);
+      ring.finish(k);
     }
     totals[r] = total;
     ok[r] = okv != 0;
   }
+}
+
+extern "C" void lz4t_host_encode_wide(const uint8_t* rows, const int32_t* lens,
+                                      const int32_t* wlens, uint8_t* out,
+                                      int32_t* totals, uint8_t* ok, int R,
+                                      int DT, int D, int CAP, int mid) {
+  encode_wide(rows, lens, wlens, out, totals, ok, R, DT, D, CAP, mid, 0);
+}
+
+// The same rows through the serial bodies: the reference the lanes' path
+// is held to; no card path runs it
+extern "C" void lz4t_host_encode_wide_serial(
+    const uint8_t* rows, const int32_t* lens, const int32_t* wlens,
+    uint8_t* out, int32_t* totals, uint8_t* ok, int R, int DT, int D, int CAP,
+    int mid) {
+  encode_wide(rows, lens, wlens, out, totals, ok, R, DT, D, CAP, mid, 1);
 }
 
 // K6a: lz4_decode_wide.cu
@@ -457,14 +541,33 @@ extern "C" void lz4t_host_decode_wide(const uint8_t* comp,
   }
 }
 
-// K7: xxh32.cu
+// K7: xxh32.cu, the kernel's steps in its order: chunk c + 1 staged into
+// the two-chunk ring before chunk c is folded
 extern "C" void lz4t_host_xxh32(const uint8_t* data, const int32_t* lens,
                                 int64_t* out, int B, int W, int seed) {
+  const int CW = LZ4T_XXH_CHUNK / 4;
+  std::vector<uint32_t> ring(2 * CW);
   for (int r = 0; r < B; r++) {
     const uint8_t* p = data + (size_t)r * W;
+    const int len = lens[r];
+    const int nc = (len + LZ4T_XXH_CHUNK - 1) / LZ4T_XXH_CHUNK;
+    if (nc)
+      lz4t_xxh32_stage(p, len, 0, lz4t_min(len, LZ4T_XXH_CHUNK), ring.data(),
+                       0, 1);
     uint32_t acc[4];
-    for (int k = 0; k < 4; k++)
-      acc[k] = lz4t_xxh32_lane(p, lens[r], (uint32_t)seed, k);
-    out[r] = lz4t_xxh32_finish(acc, p, lens[r], (uint32_t)seed);
+    lz4t_xxh32_init(acc, (uint32_t)seed);
+    for (int c = 0; c < nc; c++) {
+      const int b0 = c * LZ4T_XXH_CHUNK, b1 = b0 + LZ4T_XXH_CHUNK;
+      if (b1 < len)
+        lz4t_xxh32_stage(p, len, b1, lz4t_min(len, b1 + LZ4T_XXH_CHUNK),
+                         ring.data() + ((c + 1) & 1) * CW, 0, 1);
+      lz4t_xxh32_stripes(acc, ring.data() + (c & 1) * CW,
+                         (lz4t_min(len, b1) - b0) >> 4);
+    }
+    const int b0 = nc ? (nc - 1) * LZ4T_XXH_CHUNK : 0;
+    const uint8_t* last = reinterpret_cast<const uint8_t*>(
+        ring.data() + (nc ? (nc - 1) & 1 : 0) * CW);
+    out[r] = lz4t_xxh32_finish(acc, last + (len / 16 * 16 - b0), len,
+                               (uint32_t)seed);
   }
 }

@@ -11,9 +11,10 @@ and total per row, and the same stream bytes [0, total) where ok holds.
 encode.encode_batch / encode_batch_window and encode_mid.encode_batch_mid
 / _window route such rows here (encode.bw_fits).
 
-The parse is the byte-wide kernels'; the emit is _encode_kernel's, with no
-room guard (csrc/lz4_encode.cuh), and the window preload inserts every
-usable window position. Rows go up to the 4 MiB LZ4 block.
+The parse is the byte-wide kernels' (one warp per row, as K2a/K2b and
+K2c run it); the emit is _encode_kernel's, with no room guard
+(csrc/lz4_encode.cuh), and the window preload inserts every usable window
+position. Rows go up to the 4 MiB LZ4 block.
 """
 
 from __future__ import annotations
@@ -49,9 +50,14 @@ def encode_batch_wide(data: torch.Tensor, lens: torch.Tensor,
     if not R:
         return out, totals, ok
     # the kernel's rows: [window D | block N | 8 zero bytes], built in a
-    # device scratch
+    # device scratch with 16 bytes after the last row, which the parse may
+    # read one word into; its warp reads the rows as u32 words
     DT = D + N + 8
-    rows = torch.empty((R, DT), dtype=torch.uint8, device=data.device)
+    if DT % 4:
+        raise ValueError(f"row width {DT}: K6b reads its rows as u32 words")
+    flat = torch.empty((R * DT + 16,), dtype=torch.uint8, device=data.device)
+    flat[R * DT:] = 0
+    rows = flat[:R * DT].view(R, DT)
     if D:
         rows[:, :D] = windows
     rows[:, D:D + N] = data

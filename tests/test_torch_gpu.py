@@ -538,6 +538,38 @@ def test_xxh32_kernel_matches_plain(cuda, seed):
         assert got.tolist() == [native.xxh32(b, seed) for b in blocks]
 
 
+# K7's rows whose starts are not 16-byte aligned: widths of every residue
+# mod 4 and mod 16 (65,860 is CAP of a 64 KiB row), lengths that end on
+# and beside the staging ring's 4 KiB chunks
+XXH_WIDTHS = [65537, 65538, 65539, 65544, 65548, 65860]
+XXH_LENGTHS = list(range(41)) + [4095, 4096, 4097, 8191, 8192, 8193, 16383,
+                                 16384, 16385, 65535, 65536]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 0x9E3779B1, 0x80000001])
+def test_xxh32_kernel_unaligned_rows_match_plain(cuda, seed):
+    """K7 on rows of every start alignment: each width, and the same rows
+    at a storage offset of 3 bytes; one launch per call."""
+    text = corpus.silesia_like(N + 64, seed=5)
+    blocks = [text[:n] for n in XXH_LENGTHS]
+    want = [native.xxh32(b, seed) for b in blocks]
+    for width in XXH_WIDTHS:
+        rows, lens = _rows(blocks, width)
+        flat = torch.zeros(rows.numel() + 16, dtype=torch.uint8)
+        flat[3:3 + rows.numel()] = rows.reshape(-1)
+        for r in (rows, flat[3:3 + rows.numel()].view(rows.shape)):
+            dev = torch.empty(r.numel() + 16, dtype=torch.uint8, device=cuda)
+            off = r.storage_offset()
+            dev[off:off + r.numel()] = r.reshape(-1).to(cuda)
+            before = xxh32.launches
+            got = xxh32.xxh32_batch(dev[off:off + r.numel()].view(r.shape),
+                                    lens.to(cuda), seed).cpu()
+            assert xxh32.launches == before + 1
+            assert torch.equal(got, xxh32.xxh32_batch_plain(r, lens, seed))
+            assert got.tolist() == want
+
+
 def _wide_rows(width):
     text = corpus.silesia_like(3 * width, seed=9)
     rng = np.random.default_rng(29)
@@ -568,6 +600,28 @@ def test_encode_wide_kernel_matches_plain(cuda, mid, window):
     plain = encode_wide.encode_batch_wide_plain(*args, mid=mid)
     _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
     assert bool(plain[2][0]) and not bool(plain[2][2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mid", [False, True], ids=["greedy", "mid"])
+def test_encode_wide_kernel_edge_rows_match_plain(cuda, mid):
+    """K6b on corpus.wide_edge_rows: the greedy or chain edge blocks at the
+    first widths K6b takes, alone and at the end of full rows, plain and
+    after 64 KiB windows; one launch per call."""
+    (blocks, n), (wblocks, nw, wins, wlens) = corpus.wide_edge_rows(mid)
+    counter = "mid_launches" if mid else "launches"
+    for args in (list(_rows(blocks, n)) + [None, None],
+                 list(_rows(wblocks, nw)) + [
+                     torch.from_numpy(np.stack([np.frombuffer(w, np.uint8)
+                                                for w in wins])),
+                     torch.tensor(wlens, dtype=torch.int32)]):
+        before = getattr(encode_wide, counter)
+        kern = encode_wide.encode_batch_wide(
+            *[a.to(cuda) if a is not None else None for a in args], mid=mid)
+        assert getattr(encode_wide, counter) == before + 1
+        plain = encode_wide.encode_batch_wide_plain(*args, mid=mid)
+        _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
+        assert bool(plain[2].any())
 
 
 @pytest.mark.gpu

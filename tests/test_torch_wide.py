@@ -182,9 +182,9 @@ def host_lib():
 @pytest.mark.parametrize("kind", ["greedy", "mid", "greedy-window",
                                   "mid-window"])
 def test_kernel_row_body_matches_pallas(kind, host_lib):
-    """The CUDA kernel's row bodies (lz4t_encode_row<true, false>,
-    lz4t_encode_mid_row<2, false>), built for the host, on the rows the
-    kernel sees: [window | block | 8 zero bytes]."""
+    """The CUDA kernel's row body (lz4_encode_wide.cuh: the lanes' parse
+    with K6b's emit, through the ring), built for the host, on the rows
+    the kernel sees: [window | block | 8 zero bytes]."""
     rows, lens, wins, wl = _rows()
     Dk = D if kind.endswith("window") else 0
     R = rows.shape[0]

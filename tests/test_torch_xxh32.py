@@ -110,3 +110,74 @@ def test_xxh32_batch_rejects_bad_operands(kw, err):
                        dtype=kw.get("lens_dtype", torch.int32))
     with pytest.raises(ValueError, match=err):
         xxh32.xxh32_batch(data, lens)
+
+
+# ---------------------------------------------------------------------------
+# K7's staging ring: rows of any start alignment, lengths at its chunk edges
+# ---------------------------------------------------------------------------
+
+# the staging ring's chunk (csrc/xxh32.cuh: LZ4T_XXH_CHUNK)
+CHUNK = 4096
+XLENGTHS = (list(range(41)) + [CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK - 1,
+                               2 * CHUNK, 2 * CHUNK + 1, 16383, 16384, 16385,
+                               65535, 65536])
+# widths of every residue mod 4 and mod 16; 65,860 is CAP of a 64 KiB row,
+# the width of the compressed rows the batch layer hashes
+XWIDTHS = [65537, 65538, 65539, 65544, 65548, 65860]
+# a seed with bit 31 set beside chip_smoke.py's two
+XSEEDS = [0, 0x9E3779B1, 0x80000001]
+
+
+@functools.lru_cache(maxsize=None)
+def _xblocks() -> list[bytes]:
+    rng = np.random.default_rng(0x7833)
+    data = rng.integers(0, 256, 65536, dtype=np.uint8).tobytes()
+    return [data[:n] for n in XLENGTHS]
+
+
+@functools.lru_cache(maxsize=None)
+def _xjax(seed: int) -> list[int]:
+    rows, lens = _rows(_xblocks(), 65536)
+    return np.asarray(xxh32_jax.xxh32_batch(
+        jnp.asarray(rows), jnp.asarray(lens), np.uint32(seed))).tolist()
+
+
+def _at_offset(rows: np.ndarray, offset: int) -> np.ndarray:
+    """rows copied to a buffer whose first byte sits `offset` bytes past a
+    16-byte boundary."""
+    buf = np.zeros(rows.size + 32, np.uint8)
+    start = (offset - buf.ctypes.data) % 16
+    view = buf[start:start + rows.size].reshape(rows.shape)
+    view[:] = rows
+    assert view.ctypes.data % 16 == offset
+    return view
+
+
+def test_jax_reference_is_native_xxh32():
+    for seed in XSEEDS:
+        assert _xjax(seed) == [native.xxh32(b, seed) for b in _xblocks()]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4, 7, 8, 12, 15])
+@pytest.mark.parametrize("width", XWIDTHS)
+@pytest.mark.parametrize("seed", XSEEDS)
+def test_kernel_row_body_unaligned_rows_match_jax(seed, width, offset,
+                                                  host_lib):
+    """K7's staging (16-byte loads and funnel shifts, byte loads at a row's
+    first and last 16-byte units) and fold, built for the host, on rows
+    whose starts fall at every alignment: the first row at `offset` past a
+    16-byte boundary, each next one width bytes on."""
+    rows, lens = _rows(_xblocks(), width)
+    rows = _at_offset(rows, offset)
+    out = np.zeros(len(lens), np.int64)
+    host_lib.lz4t_host_xxh32(rows.ctypes.data, lens.ctypes.data,
+                             out.ctypes.data, len(lens), width,
+                             seed - (seed >> 31 << 32))
+    assert out.tolist() == _xjax(seed)
+
+
+@pytest.mark.parametrize("seed", XSEEDS)
+def test_plain_chunk_edges_and_unaligned_width(seed):
+    rows, lens = _rows(_xblocks(), 65539)
+    assert xxh32.xxh32_batch(torch.from_numpy(rows), torch.from_numpy(lens),
+                             seed).tolist() == _xjax(seed)
