@@ -26,7 +26,9 @@ kernels:
     the depth-2 chain for a level-8 request) and one of the packed-word
     decode kernel K6a, framed as a standard 4 MiB frame; K6b is also held
     to its plain version on the greedy and chain edge rows at the first
-    widths it takes (corpus.wide_edge_rows), and the phase prints K6b's and
+    widths it takes (corpus.wide_edge_rows), K6a on the rows aimed at its
+    parse hand-over and copies at 128 KiB and 4 MiB
+    (corpus.wide_decode_edge_rows), and the phase prints K6b's and
     K7's times beside their bounds (K7's chain bound from a probe of
     tools/xxh32_stamps_torch.py) and its peak device memory;
   * block checksums: a 256 MiB frame of 64 KiB blocks whose checksums are
@@ -1065,7 +1067,10 @@ def main() -> int:
     def dec_wide_both(streams, cap, what):
         C_ = max(16, (max(len(x) for x in streams) + 16 + 3) & ~3)
         a, n = rows_of(streams, C_)
-        ha, hn = torch.from_numpy(a), torch.from_numpy(n)
+        return dec_wide_rows(torch.from_numpy(a), torch.from_numpy(n), cap,
+                             what)
+
+    def dec_wide_rows(ha, hn, cap, what):
         kern = decode.decode_batch(ha.to(dev), hn.to(dev), cap)
         torch.cuda.synchronize()
         plain, p_ms = host_ms(lambda: decode.decode_batch_wide_plain(
@@ -1109,6 +1114,23 @@ def main() -> int:
     check(all(p6b[0][i].numpy().tobytes() == big_blocks[i] for i in (0, 1))
           and not p6b[2].numpy()[2], "K6a decodes the native 4 MiB blocks")
     k6a_err = max(e6a_1, e6a_2)
+    # the rows aimed at the parse hand-over and the copy steps with the row
+    # and the output in device memory: short offsets, ring wraps (over 200
+    # times in a 4 MiB row of 440,000 sequences), clen past C, out_cap
+    # crossings, bad literal runs and rows that run to C, each followed by
+    # a sentinel or a nonzero row
+    for name, (a, n, cap) in corpus.wide_decode_edge_rows().items():
+        pe, _, e = dec_wide_rows(torch.from_numpy(a), torch.from_numpy(n),
+                                 cap, f"the {len(n)} {name} rows "
+                                 f"(out_cap {cap >> 10} KiB)")
+        k6a_err = max(k6a_err, e)
+        if name in ("bad-literal", "big-4m"):
+            okp = pe[2].numpy()
+            sent = [i for i in range(1, len(n)) if okp[i] and not okp[i - 1]]
+            check(bool(len(sent)) and all(
+                torch.equal(pe[0][i, :pe[1][i]], pe[0][sent[0], :pe[1][i]])
+                for i in sent),
+                f"{name}: the sentinel rows after the bad rows are intact")
 
     # ---- 17. the whole-block codec at full width: 64 rows of 4 MiB ------
     from plz4_tpu_torch.frame import block_io, header, trailer
@@ -1364,7 +1386,8 @@ def main() -> int:
              max_abs_err=k6b[True][1], ms=k6b_mid_ms, plain_ms=k6b[True][0],
              bound_ms=k6b_mid_bound[0], bound_by=k6b_mid_bound[1],
              library_ms=None),
-        dict(name="K6a packed-word block decode (blocks over 96 KiB)",
+        dict(name="K6a whole-block decode (blocks over 96 KiB; a parse "
+                  "thread feeding seven copy warps)",
              route="cuda", source="plz4_tpu_torch/csrc/lz4_decode_wide.cu",
              replaces="plz4_tpu/ops/decode_pallas.py:130",
              launches=wide_counts["decode.wide_launches"],

@@ -548,3 +548,213 @@ def decode_edge_batches(seed: int = 8) -> dict:
     edge.append(lz4_sequence(rand(10), 7, 55) + lz4_sequence(rand(2)))
     out["out-cap"] = batch(edge, 128, cap, rand(256))
     return out
+
+
+def many_sequences(out_len: int, seed: int = 12) -> bytes:
+    """A valid LZ4 block stream of short sequences that decodes to at most
+    out_len bytes: 0-3 literals and a 4-12 byte match each (~9.5 output
+    bytes a sequence, as the whole-block encoder's greedy streams have),
+    offsets below 32 for a third of them and anywhere back to 64 KiB for
+    the rest, then 5 literals."""
+    rng = np.random.default_rng(seed)
+    n = out_len // 8
+    L = rng.integers(0, 4, n)
+    L[0] = 3
+    M = rng.integers(4, 13, n)
+    end = np.cumsum(L + M)
+    n = int(np.searchsorted(end, out_len - 5, side="right"))
+    L, M = L[:n], M[:n]
+    at = end[:n] - M  # output position of each match
+    far = rng.integers(1, 65536, n)
+    off = np.where(rng.random(n) < 1 / 3, rng.integers(1, 32, n), far)
+    off = np.minimum(off, at)
+    size = 3 + L
+    start = np.cumsum(size) - size
+    s = np.zeros(int(size.sum()), np.uint8)
+    s[start] = (L << 4) | (M - 4)
+    lit_at = np.repeat(start + 1, L) + (np.arange(int(L.sum()))
+                                        - np.repeat(np.cumsum(L) - L, L))
+    s[lit_at] = rng.integers(0, 256, len(lit_at), dtype=np.uint8)
+    s[start + 1 + L] = off & 255
+    s[start + 2 + L] = off >> 8
+    return s.tobytes() + lz4_sequence(
+        rng.integers(0, 256, 5, dtype=np.uint8).tobytes())
+
+
+WIDE_CAP = 131072  # K6a's first out_cap in the edge rows (over 96 KiB)
+BIG_CAP = 4 << 20  # the LZ4 maximum block
+
+
+def wide_decode_edge_rows(seed: int = 10) -> dict:
+    """Row batches aimed at the whole-block decoder's parse hand-over and
+    copy steps with the row and the output in device memory (K6a: a parse
+    thread hands sequences, 32 at a time, through a ring of 2,048 to warps
+    that copy 224 bytes per step; reads at or past the row's C bytes return
+    0; a literal run that fails its checks copies nothing but counts in
+    n_out). name -> (rows (B, C) uint8, clens (B,) int32, out_cap).
+
+    At out_cap WIDE_CAP (128 KiB):
+      * short-offsets: decode_edge_batches' cases (offset 1-64, match
+        length 4-130 after 0-40 literals) chained, one row per offset
+        twice: after `offset` literals, and from the row's start with the
+        cases rotated so that the first match starts at output position
+        0-40 (refused where its offset passes it);
+      * ring-wrap: decode_edge_batches' ring-wrap rows (against no window
+        their far rows are refused) and 32,700 four-byte matches that fill
+        out_cap exactly (the ring wraps 16 times);
+      * clen-over-C: decode_edge_batches' rows whose clen exceeds C = 64;
+      * out-cap: streams that pass out_cap in the middle of a literal run
+        or of a match, or fill it exactly;
+      * bad-literal: literal runs that fail their checks (past out_cap,
+        past clen, and a junk run read from a token at ip >= clen, whose
+        length bytes lie past clen or run to C), each followed by a
+        sentinel row that fills out_cap;
+      * neighbours: rows of C = 256 whose streams run to C (a literal run
+        that ends on C or 4 or 5 bytes before it, a match whose length
+        byte lies at C, length runs of 255s that reach it or end 8 or 5
+        zero bytes before it, zero literals into the row's zero tail and
+        past C, clen > C), each followed by a row of nonzero bytes, the
+        last one at the end of the batch.
+    At out_cap BIG_CAP (4 MiB):
+      * ring-wrap-4m, clen-over-C-4m: the same rows;
+      * out-cap-4m: literal runs and matches that pass 4 MiB or fill it;
+      * big-4m: many_sequences(BIG_CAP), over 440,000 sequences (the ring
+        wraps over 200 times), and after a bad literal run, a cut copy and
+        a junk run the full row again as a sentinel (a damaged copy,
+        whose verdict depends on where its bytes were flipped, follows a
+        sentinel)."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n: int) -> bytes:
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    def batch(streams, out_cap, clens=None, C=None):
+        if C is None:
+            C = max(16, (max(len(s) for s in streams) + 16 + 3) & ~3)
+        rows = np.zeros((len(streams), C), np.uint8)
+        for i, s in enumerate(streams):
+            s = s[:C]
+            rows[i, :len(s)] = np.frombuffer(s, np.uint8)
+        clens = [len(s) if n is None else n for s, n in
+                 zip(streams, clens or [None] * len(streams))]
+        return rows, np.asarray(clens, np.int32), out_cap
+
+    def streams_of(name):
+        rows, clens, _, _ = edge[name]
+        return [rows[i].tobytes() for i in range(len(clens))], list(clens)
+
+    edge = decode_edge_batches()
+    out = {}
+    cases = [(op, ml) for op in SHORT_OPS for ml in SHORT_MLS]
+    short = []
+    for k, off in enumerate(SHORT_OFFS):
+        lits = [bytes((37 * j + 11) & 255 for j in range(op))
+                for op, _ in cases]
+        chain = [lz4_sequence(x, off, ml) for x, (_, ml) in zip(lits, cases)]
+        tail = lz4_sequence(b"z")
+        # after `off` literals, so that the first match is legal
+        short.append(lz4_sequence(rand(off) + lits[0], off, cases[0][1])
+                     + b"".join(chain[1:]) + tail)
+        r = len(SHORT_MLS) * (k % len(SHORT_OPS))
+        short.append(b"".join(chain[r:] + chain[:r]) + tail)
+    out["short-offsets"] = batch(short, WIDE_CAP)
+
+    wrap, wrap_clens = streams_of("ring-wrap")
+    m4 = bytearray(lz4_sequence(rand(16), 1, 4))
+    for k in range(1, 32700):
+        m4 += lz4_sequence(b"", 1 + k % 16, 4)
+    m4 += lz4_sequence(rand(WIDE_CAP - 4 * 32700 - 16))
+    wrap.append(bytes(m4))
+    wrap_clens.append(len(m4))
+    out["ring-wrap"] = batch(wrap, WIDE_CAP, wrap_clens)
+    out["ring-wrap-4m"] = batch(wrap, BIG_CAP, wrap_clens)
+    over, over_clens = streams_of("clen-over-C")
+    out["clen-over-C"] = batch(over, WIDE_CAP, over_clens, C=64)
+    out["clen-over-C-4m"] = batch(over, BIG_CAP, over_clens, C=64)
+
+    def cap_rows(cap, leads, extras):
+        """Literal runs that reach cap +- extra after a lead, and matches
+        that do (from `lead` bytes back)."""
+        rows = []
+        for lead in leads:
+            for extra in extras:
+                head = lz4_sequence(rand(lead), 1, 4) if lead else b""
+                pre = lead + 4 if lead else 0
+                rows.append(head + lz4_sequence(rand(max(cap - pre + extra,
+                                                         0))))
+                if lead:
+                    rows.append(lz4_sequence(rand(lead), lead,
+                                             cap - lead + extra)
+                                + lz4_sequence(b""))
+        return rows
+
+    fills = [lz4_sequence(rand(10), 7, WIDE_CAP - 10) + bytes([0]),
+             lz4_sequence(rand(10), 7, WIDE_CAP - 9) + lz4_sequence(rand(2))]
+    out["out-cap"] = batch(cap_rows(WIDE_CAP, (0, 10, 59), (-1, 0, 1, 20))
+                           + fills, WIDE_CAP)
+    out["out-cap-4m"] = batch(cap_rows(BIG_CAP, (0, 59), (-1, 0, 1)),
+                              BIG_CAP)
+
+    def lit_past_cap(cap):
+        """9 output bytes, then a literal run 4,000 bytes past cap."""
+        n = cap + 4000 - 15
+        return (lz4_sequence(b"A", 1, 8) + bytes([0xF0]) + _varint(n)
+                + b"b" * 64)
+
+    # a match whose length extension lies past clen, then a junk token
+    # there: its run of 541 (or, in the second, 255s that reach C)
+    junk = lz4_sequence(b"a", 1, 24)
+    junk_clen = len(junk) - 1  # the extension byte lies past clen
+    sentinel = many_sequences(WIDE_CAP, seed=seed + 1)
+    lit_past_clen = lz4_sequence(rand(16), 3, 20) + lz4_sequence(rand(400))
+    bad = [(lit_past_cap(WIDE_CAP), None),
+           (lit_past_clen, len(lit_past_clen) - 100),
+           (lz4_sequence(rand(400)), 200),
+           (junk + bytes([0xF0, 0xFF, 0xFF, 0x10]), junk_clen)]
+    streams, clens = [], []
+    for s, clen in bad:
+        streams += [s, sentinel]
+        clens += [len(s) if clen is None else clen, len(sentinel)]
+    C = (len(sentinel) + 16 + 3) & ~3
+    streams += [junk + bytes([0xF0]) + b"\xff" * (C - len(junk) - 1),
+                sentinel]
+    clens += [junk_clen, len(sentinel)]
+    out["bad-literal"] = batch(streams, WIDE_CAP, clens, C=C)
+
+    C = 256
+    nonzero = bytes(rng.integers(1, 256, C, dtype=np.uint8))
+    ends = lz4_sequence(rand(254))  # exactly C bytes
+    m255 = bytes([0xFF, 1]) + rand(16) + bytes([3, 0])
+    m255 += b"\xff" * (C - len(m255))  # a match length run to C
+    past = lz4_sequence(rand(300))  # clen > C: zeros past C
+    ends5 = lz4_sequence(rand(249))  # 5 zeros after it, the parse reads on
+    ends4 = lz4_sequence(rand(249) + b"\x07")  # 4 zeros after it
+    # zero literals into the row's zero tail, to C - 4 and past C
+    zlits = lz4_sequence(rand(245) + bytes(5))
+    zpast = lz4_sequence(rand(240) + bytes(60))
+    # literals to C - 2, then the offset: its match length byte lies at C
+    at_c = bytes([0xFF, 252 - 15]) + rand(252) + bytes([7, 1])
+    l255 = bytes([0xF0]) + b"\xff" * (C - 1)  # a literal length run to C
+    # a match length run to the stream's end, 8 zeros before C: the parse's
+    # last reads, unguarded, come nearest C
+    tail_edge = bytes([0x1F]) + b"a" + bytes([1, 0]) + b"\xff" * (C - 12)
+    tail_edge5 = tail_edge + b"\xff" * 3  # 5 zeros: read with the guard
+    out["neighbours"] = batch(
+        [ends, nonzero, m255, b"\xff" * C, m255, nonzero, past, nonzero,
+         ends5, nonzero, ends4, nonzero, at_c, nonzero, zlits, nonzero,
+         zpast, nonzero, tail_edge, nonzero, tail_edge5, nonzero, l255,
+         b"\xff" * C, l255],
+        WIDE_CAP, [C, C, 20, C, C, C, len(past), C] + [C] * 8
+        + [len(zpast), C, C - 8, C, C - 5] + [C] * 4, C=C)
+
+    big = many_sequences(BIG_CAP, seed=seed + 2)
+    flip = bytearray(big)
+    for _ in range(3):
+        flip[int(rng.integers(len(big) // 2, len(big)))] ^= int(
+            rng.integers(1, 256))
+    out["big-4m"] = batch(
+        [big, lit_past_cap(BIG_CAP), big, big[:len(big) * 3 // 5], big,
+         bytes(flip), junk + bytes([0xF0, 0xFF, 0xFF, 0x10]), big],
+        BIG_CAP, [len(big), None, len(big), None, len(big), len(big),
+                  junk_clen, len(big)])
+    return out

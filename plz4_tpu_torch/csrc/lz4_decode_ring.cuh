@@ -1,25 +1,37 @@
-// K1 and K3's row body: a parse warp feeding byte-parallel copy warps
-// through a ring of sequences in shared memory.
+// K1, K3 and K6a's row body: a parse thread feeding byte-parallel copy
+// warps through a ring of sequences in shared memory.
 //
 // lz4t_parse_strict runs the per-sequence rules of lz4t_decode_row (K1,
 // reads past C clip to the row's last byte, a run of 255s that reaches it
-// never ends) or of lz4t_decode_window_row in strict mode (K3, reads past C
-// return 0, offsets may reach dlen bytes into the window), rewritten in
-// emit form: it copies nothing itself and hands each sequence, (ip, n_lit,
-// off, m), to emit in order with exactly the bytes the serial loop would
-// copy: a sequence whose literals fail its checks copies nothing and ends
-// the row, one whose match fails copies its literals only.
-// lz4t_copy_batch_lanes (lz4_decode_window.cuh) then writes the bytes
-// [0, n_out) the serial loop writes, 32 sequences at a time.
+// never ends), of lz4t_decode_window_row in strict mode (K3, reads past C
+// return 0, offsets may reach dlen bytes into the window) or of
+// lz4t_decode_wide_row (K6a, kCountBad: reads past C return 0, and a
+// literal run that fails its checks copies nothing but still counts in
+// n_out), rewritten in emit form: it copies nothing itself and hands each
+// sequence, (ip, n_lit, off, m), to emit in order with exactly the bytes
+// the serial loop would copy: a sequence whose literals fail its checks
+// copies nothing and ends the row, one whose match fails copies its
+// literals only. lz4t_copy_batch_lanes (lz4_decode_window.cuh) then writes
+// the bytes [0, n_out) the serial loop writes (K6a: the bytes it writes),
+// 32 sequences at a time.
 //
-// The row is read from a padded copy: its C bytes and LZ4T_RING_PAD more
-// that hold what every read past C returns (c[C-1] for K1, 0 for K3), so a
-// read at p reads min(p, C) and needs no branch.
+// The parse and the copies read the row through a Row: lz4t_pad_row, a
+// padded copy in shared memory (K1, K3) whose C bytes are followed by
+// LZ4T_RING_PAD more that hold what every read past C returns (c[C-1] for
+// K1, 0 for K3), so a read at p reads min(p, C) and needs no branch; or
+// the row in place in device memory (K6a), whose reads at or past C return
+// 0 (the bytes there are the next row's, or lie past the allocation):
+// lz4t_tail_row where the row ends in zeros that its stream does not reach,
+// as the wrappers' rows do (no read reaches C there, so none is guarded),
+// else lz4t_dev_row (a guard on each read).
 //
-// On the card (lz4t_ring_row): warp 0's lane 0 parses and fills a ring of
-// LZ4T_RING_BATCHES slots of 32 sequences; warps 1-7 copy the slots in
-// order. Each slot has a full and an empty mbarrier: the parse waits on a
-// slot's empty barrier (one arrival per copy warp, once it has read the
+// On the card (lz4t_ring_decode): warp 0's lane 0 parses and fills a ring
+// of LZ4T_RING_BATCHES slots of 32 sequences; warps 1-7 copy the slots in
+// order into the output row, in shared memory (K1, K3, which then copy it
+// out) or in device memory (K6a, no copy-out: a match's source is read
+// back from device memory with plain loads, ordered by the copy steps'
+// barrier). Each slot has a full and an empty mbarrier: the parse waits on
+// a slot's empty barrier (one arrival per copy warp, once it has read the
 // slot) before it refills it, and arrives on its full barrier when the
 // slot holds 32 sequences or the row's last ones (fewer than 32, maybe 0,
 // which tells the copy warps that the row has ended). The host build runs
@@ -38,21 +50,92 @@
 // count per slot, and the row's n_out (ops/decode.py: RING_SMEM)
 #define LZ4T_RING_SMEM (LZ4T_RING_BATCHES * (32 * 16 + 8 + 8 + 4) + 16)
 
-// byte p of a padded row of C bytes (cw: (C + LZ4T_RING_PAD) / 4 words)
+// a row staged in shared memory with its pad (K1, K3): byte p is
+// cb[min(p, C)]
+struct lz4t_pad_row {
+  const uint8_t* cb;
+  int C;
+  LZ4T_HDM int operator()(int p) const { return cb[lz4t_min(p, C)]; }
+  // bytes p .. p + 4 into b (past C the pad holds what every read there
+  // returns)
+  LZ4T_HDM void five(int p, int* b) const {
+    const uint8_t* w = cb + lz4t_min(p, C);
+#pragma unroll
+    for (int i = 0; i < 5; i++) b[i] = w[i];
+  }
+};
+
+// byte *p of a row in device memory, through the read-only path on the card
+LZ4T_HD int lz4t_ldg(const uint8_t* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// A row read in place in device memory (K6a): bytes at or past C read 0.
+// lz4t_dev_row guards each read. lz4t_tail_row reads without a guard, for
+// a row that ends in LZ4T_TAIL_ZEROS zero bytes and whose stream ends
+// before them (lz4t_tail_fits), as the wrappers' rows do: then no read of
+// the parse or the copies reaches C. A length run stops at the first zero,
+// at or before C - Z (Z = LZ4T_TAIL_ZEROS), since a 255 or a token with a
+// length nibble of 15 lies below it; a match is taken only where its
+// offset ends by clen <= C - Z, so the next token lies at or before
+// C - Z + 1, and a pass that starts there reads a zero token and its five
+// bytes from C - Z + 2, the last at C - Z + 6 < C. The copies read only
+// literals below clen.
+#define LZ4T_TAIL_ZEROS 8
+struct lz4t_dev_row {
+  const uint8_t* c;
+  int C;
+  LZ4T_HDM int operator()(int p) const {
+    return (unsigned)p < (unsigned)C ? lz4t_ldg(c + p) : 0;
+  }
+  LZ4T_HDM void five(int p, int* b) const {
+#pragma unroll
+    for (int i = 0; i < 5; i++) b[i] = (*this)(p + i);
+  }
+};
+
+struct lz4t_tail_row {
+  const uint8_t* c;
+  int C;
+  LZ4T_HDM int operator()(int p) const { return lz4t_ldg(c + p); }
+  LZ4T_HDM void five(int p, int* b) const {
+#pragma unroll
+    for (int i = 0; i < 5; i++) b[i] = lz4t_ldg(c + p + i);
+  }
+};
+
+// whether row c of C bytes, its stream clen bytes, may be read through
+// lz4t_tail_row: it ends in LZ4T_TAIL_ZEROS zero bytes that the stream
+// does not reach
+LZ4T_HD bool lz4t_tail_fits(const uint8_t* c, int C, int clen) {
+  if (C < LZ4T_TAIL_ZEROS || clen > C - LZ4T_TAIL_ZEROS) return false;
+  int t = 0;
+  for (int i = C - LZ4T_TAIL_ZEROS; i < C; i++) t |= lz4t_ldg(c + i);
+  return t == 0;
+}
+
+// byte p of a padded row of C bytes (cw: (C + LZ4T_RING_PAD) / 4 words);
+// this, lz4t_pad_varint and the word-pointer form of lz4t_parse_strict
+// below are the padded row's interface that tools/decode_stamps_torch.py
+// builds its probes against
 LZ4T_HD int lz4t_pad_rd(const uint32_t* cw, int C, int p) {
   return reinterpret_cast<const uint8_t*>(cw)[lz4t_min(p, C)];
 }
 
-// LZ4 length extension from p over a padded row (kClip: K1's rule, a run
-// of 255s that reaches the clipped last byte ends with a length no check
-// accepts; else the pad's zeros end it)
-template <bool kClip>
-LZ4T_HD int lz4t_pad_varint(const uint32_t* cw, int C, int p, int* len) {
+// LZ4 length extension from p over a row (kClip: K1's rule, a run of 255s
+// that reaches the clipped last byte ends with a length no check accepts;
+// else the zeros read past C end it)
+template <bool kClip, class Row>
+LZ4T_HD int lz4t_row_varint(const Row& row, int p, int* len) {
   int t = *len, b;
   do {
-    b = lz4t_pad_rd(cw, C, p++);
+    b = row(p++);
     t += b;
-    if (kClip && p > C && b == 255) {
+    if (kClip && p > row.C && b == 255) {
       t = 0x3fffffff;
       break;
     }
@@ -61,16 +144,26 @@ LZ4T_HD int lz4t_pad_varint(const uint32_t* cw, int C, int p, int* len) {
   return p;
 }
 
-// Strict parse of one row (K1: kClip, dlen 0; K3: dlen window bytes) over
-// its padded copy cw, handing its sequences to emit in order: emit.open()
-// before each batch of 32 (emit.k, the count so far, is then a multiple of
-// 32), then emit(ip, n_lit, off, m) for each sequence, with the literals
-// and match bytes that the serial loop copies (the last one may copy
-// nothing). out_len is the output cap.
+// the same over a padded row
+template <bool kClip>
+LZ4T_HD int lz4t_pad_varint(const uint32_t* cw, int C, int p, int* len) {
+  const lz4t_pad_row row = {reinterpret_cast<const uint8_t*>(cw), C};
+  return lz4t_row_varint<kClip>(row, p, len);
+}
+
+// Strict parse of one row (K1: kClip, dlen 0; K3: dlen window bytes; K6a:
+// kCountBad, dlen 0), read through row, handing its sequences to emit in
+// order: emit.open() before each batch of 32 (emit.k, the count so far, is
+// then a multiple of 32), then emit(ip, n_lit, off, m) for each sequence,
+// with the literals and match bytes that the serial loop copies (the last
+// one may copy nothing). out_len is the output cap. kCountBad: n_out
+// counts the full length of a literal run that fails its checks, as K6a's
+// serial loop advances past it uncopied (so n_out may exceed out_len on a
+// corrupt stream, with ok false).
 //
-// Written for one thread's dependent chain, whose links are shared-memory
-// reads and branches: once a sequence's literal length is known, the five
-// bytes where its literals end are read at once (the offset, a match length
+// Written for one thread's dependent chain, whose links are row reads and
+// branches: once a sequence's literal length is known, the five bytes
+// where its literals end are read at once (the offset, a match length
 // extension byte, and the next token and the byte after it, with or
 // without that extension byte), and a length with one extension byte is
 // taken from them without a branch. Only a length of two or more
@@ -80,13 +173,12 @@ LZ4T_HD int lz4t_pad_varint(const uint32_t* cw, int C, int p, int* len) {
 // stops, as the serial loop stops after copying the literals only. A batch
 // is published by the next open(), or by finish(), so drop_last may still
 // change its last sequence.
-template <bool kClip, class Emit>
-LZ4T_HD void lz4t_parse_strict(const uint32_t* cw, int C, int clen, int dlen,
+template <bool kClip, bool kCountBad, class Row, class Emit>
+LZ4T_HD void lz4t_parse_strict(const Row& row, int clen, int dlen,
                                int out_len, Emit& emit, int* n_out,
                                int* ok_out) {
-  const uint8_t* cb = reinterpret_cast<const uint8_t*>(cw);
   int ip = 0, op = 0, ok = clen > 0, done = clen <= 0;
-  int token = cb[0], e1 = cb[lz4t_min(1, C)];  // the token, the byte after
+  int token = row(0), e1 = row(1);  // the token, the byte after
   // the last sequence: its match failed its checks, its match length
   int last_bad = 0, last_m = 0;
   while (!done) {
@@ -100,29 +192,28 @@ LZ4T_HD void lz4t_parse_strict(const uint32_t* cw, int C, int clen, int dlen,
       lit += x15 ? e1 : 0;
       if (__builtin_expect(x15 & (e1 == 255), 0)) {
         lit = 15;
-        p = lz4t_pad_varint<kClip>(cw, C, ip + 1, &lit);
+        p = lz4t_row_varint<kClip>(row, ip + 1, &lit);
       }
       const int bad = (ip >= clen) | (p + lit > clen) | (op + lit > out_len);
       const int lit_n = bad ? 0 : lit;
       const int lit_ip = p;
       p += lit_n;
-      op += lit_n;
+      op += kCountBad ? lit : lit_n;
       const int fin = (p >= clen) | bad;
-      // past C the pad holds what every read there returns
-      const uint8_t* w = cb + lz4t_min(p, C);
-      const int b0 = w[0], b1 = w[1], b2 = w[2], b3 = w[3], b4 = w[4];
-      const int off = b0 | b1 << 8;
+      int b[5];
+      row.five(p, b);
+      const int off = b[0] | b[1] << 8;
       int ml = token & 15;
       const int m15 = ml == 15;
       int q = p + 2 + m15;
-      ml += m15 ? b2 : 0;
-      token = m15 ? b3 : b2;
-      e1 = m15 ? b4 : b3;
-      if (__builtin_expect(m15 & (b2 == 255) & !fin, 0)) {
+      ml += m15 ? b[2] : 0;
+      token = m15 ? b[3] : b[2];
+      e1 = m15 ? b[4] : b[3];
+      if (__builtin_expect(m15 & (b[2] == 255) & !fin, 0)) {
         ml = 15;
-        q = lz4t_pad_varint<kClip>(cw, C, p + 2, &ml);
-        token = lz4t_pad_rd(cw, C, q);
-        e1 = lz4t_pad_rd(cw, C, q + 1);
+        q = lz4t_row_varint<kClip>(row, p + 2, &ml);
+        token = row(q);
+        e1 = row(q + 1);
       }
       ml += 4;
       const int m = fin ? 0 : ml;
@@ -144,6 +235,17 @@ LZ4T_HD void lz4t_parse_strict(const uint32_t* cw, int C, int clen, int dlen,
   }
   *n_out = op;
   *ok_out = ok && ip == clen;
+}
+
+// The same over a padded row of C bytes (cw: (C + LZ4T_RING_PAD) / 4
+// words)
+template <bool kClip, class Emit>
+LZ4T_HD void lz4t_parse_strict(const uint32_t* cw, int C, int clen, int dlen,
+                               int out_len, Emit& emit, int* n_out,
+                               int* ok_out) {
+  const lz4t_pad_row row = {reinterpret_cast<const uint8_t*>(cw), C};
+  lz4t_parse_strict<kClip, false>(row, clen, dlen, out_len, emit, n_out,
+                                  ok_out);
 }
 
 #if defined(__CUDACC__)
@@ -192,56 +294,50 @@ struct lz4t_ring_emit {
   }
 };
 
-// One row of K1 (kClip; dict null, D = dlen = 0) or K3 (against the
-// right-aligned window dict of D bytes, dlen usable) by the block's 256
-// threads. smem: LZ4T_RING_SMEM + C + LZ4T_RING_PAD + D + out_cap bytes.
-// Writes out[0, n_out) (the rest undefined), *n_out and *ok.
-template <bool kClip>
-__device__ __forceinline__ void lz4t_ring_row(
-    const uint8_t* __restrict__ row, int C, int clen,
-    const uint8_t* __restrict__ dict, int D, int dlen,
-    uint8_t* __restrict__ out, int32_t* __restrict__ n_out,
-    bool* __restrict__ ok, int out_cap, uint8_t* smem) {
+// The ring's barriers, set up by thread 0 in smem (LZ4T_RING_SMEM bytes)
+// before the block syncs
+__device__ __forceinline__ void lz4t_ring_init(uint8_t* smem) {
   constexpr int NB = LZ4T_RING_BATCHES;
-  int4* ring = reinterpret_cast<int4*>(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + NB * 32 * 16);
   uint64_t* empty = full + NB;
-  int* cnt = reinterpret_cast<int*>(empty + NB);
-  int* s_n = cnt + NB;
-  uint32_t* cw = reinterpret_cast<uint32_t*>(smem + LZ4T_RING_SMEM);
-  uint32_t* dw = cw + (C + LZ4T_RING_PAD) / 4;
-  uint32_t* ow = dw + D / 4;
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const uint32_t* src = reinterpret_cast<const uint32_t*>(row);
-  const uint32_t* dsrc = reinterpret_cast<const uint32_t*>(dict);
-  const int nw = C / 4;
-  for (int i = t; i < nw; i += blockDim.x) cw[i] = src[i];
-  if (t < LZ4T_RING_PAD / 4)
-    cw[nw + t] = kClip && nw ? (src[nw - 1] >> 24) * 0x01010101u : 0u;
-  for (int i = t; i < D / 4; i += blockDim.x) dw[i] = dsrc[i];
-  if (t == 0) {
+  if (threadIdx.x == 0) {
     for (int s = 0; s < NB; s++) {
       lz4t_mbar_init(&full[s], 1);
       lz4t_mbar_init(&empty[s], LZ4T_RING_WARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
-  uint8_t* o = reinterpret_cast<uint8_t*>(ow);
+}
+
+// One row through the ring in smem, by the block's 256 threads, after
+// lz4t_ring_init and a block sync: warp 0's lane 0 parses row (the strict
+// parse with kClip and kCountBad, against dlen bytes of the window win of
+// D bytes) and calls done(n_out, ok) once the last batch is published;
+// warps 1-7 write the bytes the sequences copy to o, literals read through
+// row. Returns when this thread's part is done (no block sync).
+template <bool kClip, bool kCountBad, class Row, class Done>
+__device__ __forceinline__ void lz4t_ring_decode(const Row& row, int clen,
+                                                 int dlen, int out_cap,
+                                                 uint8_t* o,
+                                                 const uint8_t* win, int D,
+                                                 uint8_t* smem, Done done) {
+  constexpr int NB = LZ4T_RING_BATCHES;
+  int4* ring = reinterpret_cast<int4*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + NB * 32 * 16);
+  uint64_t* empty = full + NB;
+  int* cnt = reinterpret_cast<int*>(empty + NB);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp == 0) {
     if (lane == 0) {
       lz4t_ring_emit em = {ring, cnt, full, empty, 0, 0};
       int n, okv;
-      lz4t_parse_strict<kClip>(cw, C, clen, dlen, out_cap, em, &n, &okv);
+      lz4t_parse_strict<kClip, kCountBad>(row, clen, dlen, out_cap, em, &n,
+                                          &okv);
       em.finish();
-      *n_out = n;
-      *ok = okv != 0;
-      *s_n = n;
+      done(n, okv);
     }
     __syncwarp();
   } else {
-    const auto lit = [cw, C](int p) { return lz4t_pad_rd(cw, C, p); };
-    const uint8_t* win = reinterpret_cast<const uint8_t*>(dw);
     int bop = 0;
     for (int b = 0;; b++) {
       const int s = b % NB;
@@ -249,13 +345,51 @@ __device__ __forceinline__ void lz4t_ring_row(
       __syncwarp();
       const int n = cnt[s];
       bop = lz4t_copy_batch_lanes<LZ4T_RING_WARPS>(
-          lit, o, win, D, reinterpret_cast<const int32_t*>(ring + s * 32), n,
+          row, o, win, D, reinterpret_cast<const int32_t*>(ring + s * 32), n,
           bop, warp - 1, [&] {
             if (lane == 0) lz4t_mbar_arrive(&empty[s]);
           });
       if (n < 32) break;
     }
   }
+}
+
+// One row of K1 (kClip; dict null, D = dlen = 0) or K3 (against the
+// right-aligned window dict of D bytes, dlen usable) by the block's 256
+// threads, staged in shared memory. smem: LZ4T_RING_SMEM + C +
+// LZ4T_RING_PAD + D + out_cap bytes. Writes out[0, n_out) (the rest
+// undefined), *n_out and *ok.
+template <bool kClip>
+__device__ __forceinline__ void lz4t_ring_row(
+    const uint8_t* __restrict__ row, int C, int clen,
+    const uint8_t* __restrict__ dict, int D, int dlen,
+    uint8_t* __restrict__ out, int32_t* __restrict__ n_out,
+    bool* __restrict__ ok, int out_cap, uint8_t* smem) {
+  constexpr int NB = LZ4T_RING_BATCHES;
+  // the row's n_out, after the ring, its barriers and counts
+  int* s_n = reinterpret_cast<int*>(smem + NB * (32 * 16 + 8 + 8)) + NB;
+  uint32_t* cw = reinterpret_cast<uint32_t*>(smem + LZ4T_RING_SMEM);
+  uint32_t* dw = cw + (C + LZ4T_RING_PAD) / 4;
+  uint32_t* ow = dw + D / 4;
+  const int t = threadIdx.x;
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(row);
+  const uint32_t* dsrc = reinterpret_cast<const uint32_t*>(dict);
+  const int nw = C / 4;
+  for (int i = t; i < nw; i += blockDim.x) cw[i] = src[i];
+  if (t < LZ4T_RING_PAD / 4)
+    cw[nw + t] = kClip && nw ? (src[nw - 1] >> 24) * 0x01010101u : 0u;
+  for (int i = t; i < D / 4; i += blockDim.x) dw[i] = dsrc[i];
+  lz4t_ring_init(smem);
+  __syncthreads();
+  const lz4t_pad_row prow = {reinterpret_cast<const uint8_t*>(cw), C};
+  lz4t_ring_decode<kClip, false>(prow, clen, dlen, out_cap,
+                                 reinterpret_cast<uint8_t*>(ow),
+                                 reinterpret_cast<const uint8_t*>(dw), D,
+                                 smem, [&](int n, int okv) {
+                                   *n_out = n;
+                                   *ok = okv != 0;
+                                   *s_n = n;
+                                 });
   __syncthreads();
   uint32_t* dst = reinterpret_cast<uint32_t*>(out);
   const int words = (*s_n + 3) / 4;  // n_out <= out_cap, out_cap % 4 == 0

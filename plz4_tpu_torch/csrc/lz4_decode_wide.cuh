@@ -14,6 +14,10 @@
 // offset, bad |= op + ml > out_cap | off > op after the match length (no
 // match bytes then), and at the end ok &= ip == clen. Match copies follow
 // the LZ4 semantics (a byte-serial forward copy).
+// lz4t_decode_wide_row is the serial body: K6a runs the same rules on the
+// card as a parse thread feeding copy warps (lz4_decode_ring.cuh,
+// lz4t_parse_strict with kCountBad), and the host build keeps this body as
+// the reference that the CPU tests hold the new one to.
 #pragma once
 
 #include "lz4_common.cuh"

@@ -218,8 +218,11 @@ LZ4T_HD int lz4t_copy_batch_lanes(Lit lit, uint8_t* o, const uint8_t* win,
           [&](int i, int v) { o[s + i] = (uint8_t)v; });
     }
 #if defined(__CUDA_ARCH__)
-    // the step's bytes are written before any copy warp reads them
-    asm volatile("bar.sync %0, %1;" ::"n"(LZ4T_COPY_BAR), "r"(span));
+    // the step's bytes are written before any copy warp reads them (the
+    // clobber keeps the compiler from moving a load of o across it: the
+    // output may lie in device memory)
+    asm volatile("bar.sync %0, %1;" ::"n"(LZ4T_COPY_BAR), "r"(span)
+                 : "memory");
 #endif
   }
   return bend;

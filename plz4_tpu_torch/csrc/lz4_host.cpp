@@ -4,7 +4,7 @@
 // xxh32.cuh), compiled with g++ so that the CPU tests can run the kernels'
 // own logic on machines without a GPU. Same layouts and results as the
 // kernels' launchers. The bodies that warps run together (K1, K2a-K2d, K3,
-// K4, K5) run their lanes' steps as loops over lanes 0-31 here
+// K4, K5, K6a, K6b) run their lanes' steps as loops over lanes 0-31 here
 // (lz4_lanes.cuh).
 #include <string.h>
 
@@ -244,17 +244,18 @@ extern "C" void lz4t_host_deep_chain(const uint8_t* data, const int32_t* lens,
                    win, wlens, r, N, D, K, Dc, hash_log);
 }
 
-// K1 and K3's ring (lz4_decode_ring.cuh) on the host: the parse fills
+// K1, K3 and K6a's ring (lz4_decode_ring.cuh) on the host: the parse fills
 // LZ4T_RING_BATCHES slots of 32 sequences, publishing a batch as the card's
 // parse does, and where the card's parse would wait for a free slot, the
 // copies of the oldest published batch run (LZ4T_RING_WARPS warps, the
-// last first). The copies read a batch as it was when it was published
-// (a later change to it, which the card's copy warps may not see, is lost
-// here), and its slot is poisoned as soon as they have read it, so copies
-// that read a slot after releasing it fail the tests.
+// last first), their literals read through the parse's Row. The copies
+// read a batch as it was when it was published (a later change to it,
+// which the card's copy warps may not see, is lost here), and its slot is
+// poisoned as soon as they have read it, so copies that read a slot after
+// releasing it fail the tests.
+template <class Row>
 struct host_ring {
-  const uint32_t* cw;
-  int C;
+  Row row;
   uint8_t* o;
   const uint8_t* win;
   int W;
@@ -268,11 +269,8 @@ struct host_ring {
   }
   void copy_oldest() {
     int32_t* e = published.data() + (entry(32 * copied) - slots.data());
-    const uint32_t* w = cw;
-    const int C_ = C;
     bop = lz4t_copy_batch_lanes<LZ4T_RING_WARPS>(
-        [w, C_](int p) { return lz4t_pad_rd(w, C_, p); }, o, win, W, e,
-        cnt[copied % LZ4T_RING_BATCHES], bop, 0,
+        row, o, win, W, e, cnt[copied % LZ4T_RING_BATCHES], bop, 0,
         [this, e] {
           memset(e, 0xA5, 128 * sizeof(int32_t));
           memset(entry(32 * copied), 0xA5, 128 * sizeof(int32_t));
@@ -315,10 +313,10 @@ static void ring_row(const uint8_t* row, int C, int clen, const uint8_t* win,
   uint8_t* cb = reinterpret_cast<uint8_t*>(cw.data());
   memcpy(cb, row, C);
   memset(cb + C, kClip && C ? row[C - 1] : 0, LZ4T_RING_PAD);
-  host_ring ring = {cw.data(), C, o, win, W};
+  const lz4t_pad_row prow = {cb, C};
+  host_ring<lz4t_pad_row> ring = {prow, o, win, W};
   int n, okv;
-  lz4t_parse_strict<kClip>(cw.data(), C, clen, dlen, out_cap, ring, &n,
-                           &okv);
+  lz4t_parse_strict<kClip, false>(prow, clen, dlen, out_cap, ring, &n, &okv);
   ring.finish();
   *n_out = n;
   *ok = okv != 0;
@@ -527,11 +525,53 @@ extern "C" void lz4t_host_encode_wide_serial(
   encode_wide(rows, lens, wlens, out, totals, ok, R, DT, D, CAP, mid, 1);
 }
 
-// K6a: lz4_decode_wide.cu
+// one row of K6a through the ring, read in place through row
+template <class Row>
+static void wide_ring_row(const Row& row, int clen, uint8_t* o, int out_cap,
+                          int32_t* n_out, uint8_t* ok) {
+  host_ring<Row> ring = {row, o, nullptr, 0};
+  int n, okv;
+  lz4t_parse_strict<false, true>(row, clen, 0, out_cap, ring, &n, &okv);
+  ring.finish();
+  *n_out = n;
+  *ok = okv != 0;
+}
+
+// K6a: lz4_decode_wide.cu, the parse and the copies through the ring on
+// the row in place, read as the card reads it. A row that ends in zeros
+// its stream does not reach (lz4t_tail_row, no guard) is read from a copy
+// of exactly its C bytes, so that a read past them shows under
+// AddressSanitizer; any other (lz4t_dev_row) from a copy followed by 16
+// bytes of 0xFF, as a row in device memory is followed by the next row's
+// bytes, so that a read past C that the guard lets through gives other
+// results.
 extern "C" void lz4t_host_decode_wide(const uint8_t* comp,
                                       const int32_t* clens, uint8_t* out,
                                       int32_t* n_out, uint8_t* ok, int B,
                                       int C, int out_cap) {
+  for (int b = 0; b < B; b++) {
+    const uint8_t* row = comp + (size_t)b * C;
+    uint8_t* o = out + (size_t)b * out_cap;
+    if (lz4t_tail_fits(row, C, clens[b])) {
+      const std::vector<uint8_t> c(row, row + C);
+      wide_ring_row(lz4t_tail_row{c.data(), C}, clens[b], o, out_cap,
+                    n_out + b, ok + b);
+    } else {
+      std::vector<uint8_t> c(C + 16, 0xFF);
+      memcpy(c.data(), row, C);
+      wide_ring_row(lz4t_dev_row{c.data(), C}, clens[b], o, out_cap,
+                    n_out + b, ok + b);
+    }
+  }
+}
+
+// K6a's serial body (lz4t_decode_wide_row), the new body's reference; no
+// card path runs it
+extern "C" void lz4t_host_decode_wide_serial(const uint8_t* comp,
+                                             const int32_t* clens,
+                                             uint8_t* out, int32_t* n_out,
+                                             uint8_t* ok, int B, int C,
+                                             int out_cap) {
   for (int b = 0; b < B; b++) {
     int n, okv;
     lz4t_decode_wide_row(comp + (size_t)b * C, C, clens[b],

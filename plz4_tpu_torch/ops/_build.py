@@ -55,6 +55,7 @@ HOST_FNS = {
     "lz4t_host_encode_wide": (6, 5),
     "lz4t_host_encode_wide_serial": (6, 5),
     "lz4t_host_decode_wide": (5, 3),
+    "lz4t_host_decode_wide_serial": (5, 3),
     "lz4t_host_xxh32": (3, 3),
 }
 

@@ -9,6 +9,8 @@ on a machine without JAX:
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -653,6 +655,38 @@ def test_decode_wide_kernel_matches_plain(cuda):
     plain = decode.decode_batch_wide_plain(crow, clens, cap)
     _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
     assert int(plain[1][-2]) > cap and not bool(plain[2][-2])
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_decode_edges() -> dict:
+    return corpus.wide_decode_edge_rows()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "short-offsets", "ring-wrap", "clen-over-C", "out-cap", "bad-literal",
+    "neighbours", "ring-wrap-4m", "clen-over-C-4m", "out-cap-4m", "big-4m"])
+def test_decode_wide_kernel_edge_rows_match_plain(cuda, name):
+    """K6a on corpus.wide_decode_edge_rows at 128 KiB and 4 MiB: short
+    offsets, ring wraps (over 200 times in the 4 MiB row of 440,000
+    sequences), clen past C, out_cap crossings, bad literal runs whose
+    n_out passes out_cap, and rows that run to C (the next row's bytes are
+    nonzero); the sentinel rows after the bad ones decode intact."""
+    rows, clens, cap = _wide_decode_edges()[name]
+    rows, clens = torch.from_numpy(rows), torch.from_numpy(clens)
+    before = decode.wide_launches
+    kern = decode.decode_batch(rows.to(cuda), clens.to(cuda), cap)
+    assert decode.wide_launches == before + 1
+    plain = decode.decode_batch_wide_plain(rows, clens, cap)
+    _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
+    if name in ("bad-literal", "big-4m"):
+        ok = plain[2].tolist()
+        sent = [i for i in range(1, len(ok)) if ok[i] and not ok[i - 1]]
+        assert sent
+        ko = kern[0].cpu()
+        for i in sent:
+            n = int(plain[1][i])
+            assert torch.equal(ko[i, :n], ko[sent[0], :n])
 
 
 @pytest.mark.gpu
