@@ -35,7 +35,15 @@ kernels:
     hashed on the device by K7 on write and on read, and 32 MiB frames at
     4 MiB blocks and with a dictionary; K7 is also held to its plain
     version and native.xxh32 on rows whose starts fall off 16-byte
-    boundaries, at lengths on and beside its 4 KiB staging chunks.
+    boundaries, at lengths on and beside its 4 KiB staging chunks;
+  * sharded frames (phase 19): 256 MiB of the bench corpus at 64 KiB
+    blocks and 128 MiB at 4 MiB through compress_sharded /
+    decompress_sharded on meshes of 1 and 2 entries over cuda:0, each
+    frame equal to the unsharded device frame, walls in turns; 32 MiB with
+    a dictionary and block checksums on 2 entries; two ranks over gloo in
+    two subprocesses, both on cuda:0, whose frames must equal the
+    unsharded frame, with the gather's share of their walls; entry() and
+    dryrun_multichip(2) and (4) on cuda.
 
     python3 chip_smoke.py
 
@@ -47,6 +55,7 @@ before it holds the per-kernel measurements as one JSON object.
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import math
 import os
@@ -76,16 +85,17 @@ LEVEL_RATIOS = {3: 2.4158, 8: 2.4224, 9: 2.4390, 10: 2.4736, 11: 2.4892,
 def bench_corpus(size: int) -> bytes:
     """The first `size` bytes of bench.py's synthetic-text corpus (seed
     1234): the generator is sequential, so a prefix needs only its own
-    words."""
+    words. The word draws come in one call (a Generator's bounded draws
+    in bulk are its single draws in order); words are at least 3 bytes."""
     rng = np.random.default_rng(1234)
     vocab = []
     for _ in range(512):
         ln = int(rng.integers(2, 12))
         vocab.append(bytes(rng.integers(97, 123, ln, dtype=np.uint8)) + b" ")
-    out = bytearray()
-    while len(out) < size:
-        out += vocab[int(rng.integers(len(vocab)))]
-    return bytes(out[:size])
+    words = rng.integers(len(vocab), size=size // 3 + 1)
+    ends = np.cumsum(np.array([len(w) for w in vocab])[words])
+    n = int(np.searchsorted(ends, size)) + 1
+    return b"".join([vocab[i] for i in words[:n].tolist()])[:size]
 
 
 def vocab_text(n: int, seed: int) -> bytes:
@@ -213,6 +223,246 @@ def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"FAILED: {what}")
     print(f"ok: {what}")
+
+
+# one rank of phase 19's two-rank run (argv: repo root, coordinator, rank):
+# both ranks own an entry on cuda:0 of one 2-entry mesh, write the same
+# 32 MiB frames at 64 KiB and 256 KiB blocks and read them back; each
+# prints one RANK line of JSON
+_RANK_WORKER = r"""
+import hashlib, json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as tdist
+import chip_smoke
+from plz4_tpu_torch.ops import decode, encode
+from plz4_tpu_torch.parallel import dist
+
+rank = int(sys.argv[3])
+dist.init_distributed(sys.argv[2], 2, rank)
+mesh = dist.pod_mesh(["cuda:0"])
+assert mesh.size == 2 and [e.rank for e in mesh.entries] == [0, 1], mesh
+data = chip_smoke.bench_corpus(32 << 20)
+for idx in (4, 5):
+    kw = dict(block_size_idx=idx, level=1)
+    warm = data[: 4 << 20]
+    assert dist.decompress_sharded(dist.compress_sharded(warm, mesh, **kw),
+                                   mesh) == warm
+    for mod, attr in ((encode, "launches"), (encode, "window_launches"),
+                      (decode, "launches"), (decode, "record_launches")):
+        setattr(mod, attr, 0)
+    g0, n0 = mesh.gather_seconds, mesh.gathers
+    t0 = time.perf_counter()
+    comp = dist.compress_sharded(data, mesh, **kw)
+    t1 = time.perf_counter()
+    out = dist.decompress_sharded(comp, mesh)
+    t2 = time.perf_counter()
+    print("RANK " + json.dumps(dict(
+        rank=rank, idx=idx, sha=hashlib.sha256(comp).hexdigest(),
+        intact=out == data, enc_s=t1 - t0, dec_s=t2 - t1,
+        gather_s=mesh.gather_seconds - g0, gathers=mesh.gathers - n0,
+        launches=[encode.launches, encode.window_launches, decode.launches,
+                  decode.record_launches])), flush=True)
+# the gather alone: each rank's half of the 32 MiB, after a barrier (the
+# in-run gathers also wait for the slower rank)
+half = data[rank * (16 << 20):(rank + 1) * (16 << 20)]
+every = [None, None]
+tdist.barrier()
+t0 = time.perf_counter()
+tdist.all_gather_object(every, half)
+print("RANK " + json.dumps(dict(rank=rank, alone_s=time.perf_counter() - t0,
+                                intact=every[rank] == half)), flush=True)
+tdist.destroy_process_group()
+"""
+
+
+def two_rank_run(timeout_s: float) -> tuple[list[dict], float]:
+    """Phase 19's two-rank gloo run in two subprocesses; every process is
+    stopped before this returns. Returns the ranks' RANK records and the
+    wall of the run, start-up included."""
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK_WORKER, root, f"localhost:{port}",
+         str(rank)], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in (0, 1)]
+    records, failures = [], []
+    try:
+        for rank, p in enumerate(procs):
+            left = max(1.0, timeout_s - (time.perf_counter() - t0))
+            try:
+                out, err = p.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                failures.append(f"rank {rank} passed {timeout_s:.0f} s")
+                break
+            if p.returncode != 0:
+                failures.append(f"rank {rank} exited {p.returncode}:\n"
+                                f"{err[-3000:]}")
+            records += [json.loads(line[5:]) for line in out.splitlines()
+                        if line.startswith("RANK ")]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    check(not failures, "the two-rank run ended cleanly: "
+          + ("; ".join(failures) or "both ranks exited 0"))
+    return records, wall
+
+
+def sharded_phase(plz4, smi: str, reset, read, dict64: bytes) -> None:
+    """Phase 19: sharded frames on meshes of 1 and 2 entries over cuda:0
+    (each entry its own stream), equal to the unsharded device frame; a
+    two-rank run over gloo; the entry points."""
+    import torch
+
+    from plz4_tpu_torch import entry
+    from plz4_tpu_torch.parallel import dist
+    from plz4_tpu_torch.parallel import mesh as mesh_mod
+
+    t_phase = time.perf_counter()
+    bench32 = bench_corpus(32 << 20)
+    meshes = {"unsharded": None,
+              "1-entry": mesh_mod.make_block_mesh(["cuda:0"]),
+              "2-entry": mesh_mod.make_block_mesh(["cuda:0", "cuda:0"])}
+    check(len({id(e.stream) for e in meshes["2-entry"].entries}) == 2,
+          "the 2-entry mesh holds two streams on cuda:0")
+
+    def enc(mesh, data, kw):
+        if mesh is None:
+            return plz4.compress(data, backend="device", **kw)
+        return dist.compress_sharded(data, mesh, **kw)
+
+    def dec(mesh, frame, d=None):
+        if mesh is None:
+            return plz4.decompress(frame, backend="device", dictionary=d)
+        return dist.decompress_sharded(frame, mesh, dictionary=d)
+
+    # (a) 256 MiB of the bench corpus at 64 KiB blocks and 128 MiB at
+    # 4 MiB, unsharded and on both meshes in turns
+    order = ["unsharded", "1-entry", "2-entry", "2-entry", "1-entry",
+             "unsharded"]
+    for what, data, kw, keys in (
+            ("256 MiB at 64 KiB blocks", bench32 * 8,
+             dict(block_size_idx=plz4.BLOCK_IDX_64KB, level=1),
+             ("encode.launches", "decode.launches")),
+            ("128 MiB at 4 MiB blocks", bench32 * 4, dict(level=1),
+             ("encode.window_launches", "decode.record_launches"))):
+        warm = data[: 8 << 20]  # pinned pools of the slices' shapes
+        for m in meshes.values():
+            check(dec(m, enc(m, warm, kw)) == warm,
+                  f"warm-up round trip of {what} on {m}")
+        frames, walls, counts = {}, {k: [] for k in meshes}, {}
+        for k in order:
+            reset()
+            frame, t_e = host_ms(lambda: enc(meshes[k], data, kw))
+            torch.cuda.synchronize()
+            back, t_d = host_ms(lambda: dec(meshes[k], frame))
+            torch.cuda.synchronize()
+            counts[k] = read()
+            check(back == data, f"{what}: {k} round trip intact")
+            frames.setdefault(k, frame)
+            walls[k].append((t_e, t_d))
+            del frame, back
+        ref = frames["unsharded"]
+        check(all(f == ref for f in frames.values()),
+              f"{what}: the 1- and 2-entry frames equal the unsharded "
+              f"device frame")
+        check(plz4.decompress(ref, backend="native") == data,
+              f"{what}: the frame decodes through the native codec")
+        for key in keys:
+            u, one, two = (counts[k][key] for k in meshes)
+            check(u > 0 and one == u and two == 2 * u,
+                  f"{what}: {key} {u} unsharded, {one} on 1 entry, {two} "
+                  f"on 2 (each slice launches its own kernel)")
+        gb = len(data) / 1e9
+        line = "; ".join(
+            f"{k} encode " + "/".join(f"{t_e:.1f}" for t_e, _ in w)
+            + " ms, decode " + "/".join(f"{t_d:.1f}" for _, t_d in w)
+            + f" ms ({gb / (min(t for t, _ in w) / 1e3):.3f} / "
+            f"{gb / (min(t for _, t in w) / 1e3):.3f} GB/s best)"
+            for k, w in walls.items())
+        print(f"phase 19 sharded walls, {what} [{smi}] (turns "
+              f"{', '.join(order)}): {line}")
+        del data, frames, ref
+
+    # (b) 32 MiB with a dictionary and block checksums on the 2-entry mesh
+    kw = dict(block_size_idx=plz4.BLOCK_IDX_64KB, level=1,
+              dictionary=dict64, block_checksum=True)
+    ref = enc(None, bench32, kw)
+    reset()
+    frame = enc(meshes["2-entry"], bench32, kw)
+    back = dec(meshes["2-entry"], frame, dict64)
+    torch.cuda.synchronize()
+    c = read()
+    check(frame == ref and back == bench32
+          and plz4.decompress(frame, backend="native", dictionary=dict64)
+          == bench32, "32 MiB with a dictionary and block checksums on the "
+                      "2-entry mesh: the unsharded frame, round trip intact, "
+                      "native decode")
+    check(c["encode.window_launches"] > 0 and c["decode.dict_launches"] > 0
+          and c["xxh32.launches"] > 0,
+          f"the dictionary frame ran K2b ({c['encode.window_launches']}), "
+          f"K3 ({c['decode.dict_launches']}) and K7 ({c['xxh32.launches']})")
+
+    # (c) two ranks over gloo, both on cuda:0. The ranks load the kernel
+    # libraries phase 2 built (keyed by the sources' hash in _build/) and
+    # compile nothing: two first builds at once would race to write the
+    # same library paths, each rank running all nine nvcc jobs (per-process
+    # tmp files and os.replace keep a library whole, not the time) while
+    # the other waits at its first collective
+    refs = {idx: hashlib.sha256(plz4.compress(
+        bench32, backend="device", block_size_idx=idx, level=1)).hexdigest()
+            for idx in (plz4.BLOCK_IDX_64KB, plz4.BLOCK_IDX_256KB)}
+    records, wall = two_rank_run(timeout_s=240)
+    alone = [r for r in records if "alone_s" in r]
+    records = [r for r in records if "idx" in r]
+    check(len(records) == 4 and len(alone) == 2
+          and all(r["intact"] for r in alone),
+          f"both ranks reported both block sizes ({len(records)} records) "
+          f"and a lone gather of 2 x 16 MiB")
+    for idx, ref_sha in refs.items():
+        rs = [r for r in records if r["idx"] == idx]
+        check(len(rs) == 2 and all(r["intact"] for r in rs)
+              and all(r["sha"] == ref_sha for r in rs),
+              f"two ranks at block class {idx}: both frames equal the "
+              f"unsharded frame, both round trips intact")
+        # [K2a, K2b, K1, K5]: K2a and K1 at 64 KiB, K2b and K5 at 256 KiB
+        path = (0, 2) if idx == plz4.BLOCK_IDX_64KB else (1, 3)
+        check(all(r["launches"][i] > 0 for r in rs for i in path),
+              f"each rank launched its slices' kernels [K2a, K2b, K1, K5]: "
+              f"{[r['launches'] for r in rs]}")
+        share = "; ".join(
+            f"rank {r['rank']} encode {1e3 * r['enc_s']:.1f} ms + decode "
+            f"{1e3 * r['dec_s']:.1f} ms, {r['gathers']} gathers "
+            f"{1e3 * r['gather_s']:.1f} ms = "
+            f"{100 * r['gather_s'] / (r['enc_s'] + r['dec_s']):.1f}%"
+            for r in rs)
+        print(f"phase 19 two ranks, 32 MiB at block class {idx} [{smi}]: "
+              f"{share} (run wall {wall:.1f} s with start-up)")
+    print(f"phase 19 lone gather of 2 x 16 MiB over gloo [{smi}]: "
+          + ", ".join(f"rank {r['rank']} {1e3 * r['alone_s']:.1f} ms"
+                      for r in alone))
+
+    # (d) entry() on cuda, (e) dryrun_multichip(2) and (4)
+    step, args = entry.entry()
+    reset()
+    totals, compressible, flag = step(*args)
+    c = read()
+    check(bool(flag) and bool(compressible.all())
+          and c["encode.launches"] == 1 and c["decode.launches"] == 1,
+          f"entry() on cuda: flag set, K2a and K1 once each "
+          f"(totals {totals.tolist()})")
+    for n in (2, 4):
+        entry.dryrun_multichip(n)  # raises on a mismatch
+        print(f"ok: dryrun_multichip({n}) on cuda")
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1310,6 +1560,9 @@ def main() -> int:
               and plz4.decompress(f, backend="native", dictionary=d)
               == win_data, f"32 MiB frame with block checksums and {name} "
                            "round trip")
+
+    # ---- 19. sharded frames and the entry points -------------------------
+    sharded_phase(plz4, smi, reset, read, dict64)
 
     mid_bound = {d4: row_bound(mid[d4][3]) for d4 in mid}
     deep_bound = row_bound(deep[2][3])

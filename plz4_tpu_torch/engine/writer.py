@@ -169,8 +169,12 @@ class FrameWriter:
         self._use_device = self._o.backend == "device"
         if self._use_device:
             from ..parallel import batch as dev_batch
+            from ..parallel import mesh as mesh_mod
 
-            self._device = dev_batch.resolve_device(self._o.device)
+            # with a block mesh active, the mesh decides the devices: the
+            # batch layer gets the mesh in place of a device
+            self._device = (mesh_mod.active_mesh()
+                            or dev_batch.resolve_device(self._o.device))
         self._device_stage: list = []  # (src, window) tuples
         self._device_pending: deque = deque()  # in-flight device batches
         self._stream: native.StreamCompressor | None = None  # sync linked

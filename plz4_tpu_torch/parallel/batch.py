@@ -27,10 +27,19 @@ rows. Raw pass-through blocks verify on the host (native.xxh32).
 
 On device="cpu" the same layer runs the kernels' plain versions
 synchronously (tests).
+
+Under a block mesh (mesh.py: an active one, or one passed as `device`),
+encode_blocks_begin and decode_blocks_begin shard once, at the top, before
+the large-block route: each entry's contiguous slice of the batch runs
+through the single-device path on the entry's device and stream, and one
+Pending, whose children are the slices, assembles their results in frame
+order (the JAX package shards in each layer instead: _shard_args/_fetch
+here and in large.py; the output contract is the same).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 
@@ -43,6 +52,7 @@ from ..ops import encode as enc_ops
 from ..ops import encode_deep as deep_ops
 from ..ops import encode_mid as mid_ops
 from ..ops import xxh32 as xxh_ops
+from . import mesh as mesh_mod
 
 EMPTY_BLOCK = b"\x00"  # 1-byte literals-only token: decodes to b""
 EMPTY_HASH = 0x02cc5d05  # xxh32(b"")
@@ -120,23 +130,37 @@ class Pending:
     """A dispatched device batch. Kernel launches and copies are
     asynchronous, so the device computes while the caller stages or
     consumes other batches; result() waits for the batch's event and
-    assembles host bytes. The engine double-buffers these (reference
-    analog: the async reader/writer overlap of staging and compute,
-    SURVEY §2.2)."""
+    those of its children, then assembles host bytes. The engine
+    double-buffers these (reference analog: the async reader/writer
+    overlap of staging and compute, SURVEY §2.2).
+
+    `assemble` is a callable, or a list of steps run in order, the last
+    one returning the result. A decode batch checks every block's hash in
+    an earlier step than any block's bytes, so a sharded batch can raise
+    what the unsharded batch raises: the first failing step, over all
+    slices, in frame order (failed_step names the step a result() raised
+    in)."""
 
     def __init__(self, assemble, staging, event=None, children=()):
-        self._assemble = assemble
+        self.steps = (list(assemble) if isinstance(assemble, (list, tuple))
+                      else [assemble])
         self._staging = staging
         self._event = event  # CUDA event recorded after the batch's work
-        self._children = tuple(children)  # sub-batches assemble() consumes
+        self._children = tuple(children)  # sub-batches the steps consume
         self._result = None
         self._done = False
+        self.failed_step: int | None = None
 
     def result(self):
         if not self._done:
             try:
+                self.failed_step = -1
                 self._wait()
-                self._result = self._assemble()
+                for k, step in enumerate(self.steps):
+                    self.failed_step = k
+                    out = step()
+                self.failed_step = None
+                self._result = out
             finally:
                 self._release()
         return self._result
@@ -145,24 +169,29 @@ class Pending:
         """Abort path: return staging buffers without assembling. Used by
         engine shutdown so in-flight batches do not orphan pool buffers;
         the batch's copies may still be running, so it waits for them.
-        Child batches (the large-block paths split a batch) are discarded
-        too."""
-        for c in self._children:
-            c.discard()
+        Child batches (the large-block paths and a mesh split a batch) are
+        discarded too."""
         if not self._done:
             self._wait()
             self._release()
 
     def _wait(self):
+        for c in self._children:
+            if not c._done:
+                c._wait()
         if self._event is not None:
             self._event.synchronize()
 
     def _release(self):
+        """Give back the staging buffers, and those of every child that a
+        step did not consume (a step raised before it)."""
         for b in self._staging:
             _pool.give(b)
         self._staging = ()
         self._done = True
-        self._assemble = None
+        self.steps = ()
+        for c in self._children:
+            c.discard()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -177,6 +206,58 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _mesh_of(device):
+    """The mesh a batch shards over: `device` itself when it is one, else
+    the active mesh unless the caller named a device."""
+    if isinstance(device, mesh_mod.BlockMesh):
+        return device
+    return mesh_mod.active_mesh() if device is None else None
+
+
+def _sharded(mesh, n: int, begin) -> Pending:
+    """Split a batch of n blocks over mesh: begin(lo, hi, device) dispatches
+    blocks [lo, hi) through the single-device path, here on each entry's
+    device under its stream with the mesh switched off, for the entries
+    this process owns. The returned Pending's result() waits for every
+    slice and assembles their results in frame order; a failure in any
+    slice (on any rank: dist.gather_outcomes) raises, on every rank, the
+    error of the first failing step in frame order."""
+    own: list[tuple[int, Pending]] = []
+    try:
+        for k, ((lo, hi), e) in enumerate(zip(mesh_mod.shard_bounds(n, mesh),
+                                              mesh.entries)):
+            if hi == lo or e.rank != mesh.rank:
+                continue
+            stream = (torch.cuda.stream(e.stream) if e.stream is not None
+                      else contextlib.nullcontext())
+            with mesh_mod.use_mesh(None), stream:
+                own.append((k, begin(lo, hi, e.device)))
+    except BaseException:
+        for _, c in own:
+            c.discard()
+        raise
+
+    def assemble():
+        outcomes = {}
+        for k, c in own:
+            # every slice is assembled, and its buffers given back, before
+            # any raises (and, across ranks, before the gather)
+            try:
+                outcomes[k] = (None, c.result())
+            except Exception as e:  # re-raised below, on every rank
+                outcomes[k] = ((c.failed_step, k), e)
+        if mesh.multiprocess:
+            from . import dist
+
+            outcomes = dist.gather_outcomes(mesh, outcomes)
+        failed = [o for o in outcomes.values() if o[0] is not None]
+        if failed:
+            raise min(failed, key=lambda o: o[0])[1]
+        return [r for k in sorted(outcomes) for r in outcomes[k][1]]
+
+    return Pending(assemble, (), children=[c for _, c in own])
 
 
 def _encode_hashed(kernel):
@@ -236,6 +317,13 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
     for blk in blocks:
         if len(blk) > block_size:
             raise zerr.ErrSrcSize
+    mesh = _mesh_of(device)
+    if mesh is not None:
+        return _sharded(mesh, len(blocks), lambda lo, hi, dev: (
+            encode_blocks_begin(
+                blocks[lo:hi], block_size, level=level,
+                dicts=dicts[lo:hi] if dicts is not None else None,
+                with_checksums=with_checksums, device=dev)))
     if block_size > MAX_BLOCK:
         from . import large
 
@@ -324,6 +412,18 @@ def decode_blocks_begin(stored: list[tuple[bytes, bool]], block_size: int,
     """
     if not stored:
         return Pending(list, ())
+    # validate BEFORE sharding and taking pool buffers: a raise here must
+    # not leak them
+    if block_size <= MAX_BLOCK and any(
+            not unc and len(data) > block_size for data, unc in stored):
+        raise zerr.ErrBlockSizeOverflow
+    mesh = _mesh_of(device)
+    if mesh is not None:
+        return _sharded(mesh, len(stored), lambda lo, hi, dev: (
+            decode_blocks_begin(
+                stored[lo:hi], block_size, dict_=dict_,
+                checksums=checksums[lo:hi] if checksums is not None else None,
+                device=dev)))
     if block_size > MAX_BLOCK:
         from . import large
 
@@ -346,11 +446,7 @@ def decode_blocks_begin(stored: list[tuple[bytes, bool]], block_size: int,
                     raise zerr.ErrBlockHash
 
     if not comp_idx:
-        return Pending(lambda: (verify_raw(), results)[1], ())
-    # validate BEFORE taking pool buffers: a raise here must not leak them
-    for i in comp_idx:
-        if len(stored[i][0]) > block_size:
-            raise zerr.ErrBlockSizeOverflow
+        return Pending([verify_raw, lambda: results], ())
     dev = resolve_device(device)
     pinned = dev.type == "cuda"
     B = _pow2(len(comp_idx))
@@ -387,13 +483,15 @@ def decode_blocks_begin(stored: list[tuple[bytes, bool]], block_size: int,
     outs_h, event = _dispatch(kernel, args, dev, extra=extra)
     out, n_out, ok = outs_h[:3]
 
-    def assemble():
+    def check_hashes():
         verify_raw()
         if hashed:
             got = outs_h[3].numpy()
             for j, i in enumerate(comp_idx):
                 if checksums[i] is not None and int(got[j]) != checksums[i]:
                     raise zerr.ErrBlockHash
+
+    def assemble():
         outs = out.numpy()
         n = n_out.numpy()
         okv = ok.numpy()
@@ -403,4 +501,5 @@ def decode_blocks_begin(stored: list[tuple[bytes, bool]], block_size: int,
             results[i] = outs[j, : int(n[j])].tobytes()
         return results
 
-    return Pending(assemble, staging + list(outs_h), event=event)
+    return Pending([check_hashes, assemble], staging + list(outs_h),
+                   event=event)

@@ -25,6 +25,11 @@ Block checksums of large blocks are computed by the native xxh32 at
 assemble time over the stitched (encode) or stored (decode) bytes, which
 exist on the host only, as in the JAX package; blocks of at most 64 KiB in a
 large-BD frame go through the batch layer and hash on the device (K7).
+
+Under a block mesh this layer is not sharded itself: batch.py splits the
+batch over the mesh before its large-block route, so each slice arrives
+here with its entry's device (the JAX package shards the chunk and record
+batches in this layer instead).
 """
 
 from __future__ import annotations
@@ -176,7 +181,10 @@ def decode_large_begin(stored, block_size: int, dict_=None, checksums=None,
     its record layout; single-record blocks take the chunk-sized batch
     (K1, or K3 with a dictionary), multi-record blocks K5. Raw blocks pass
     through. Corruption (split failure, record mismatch, checksum)
-    surfaces at result() time in consume order."""
+    surfaces at result() time in consume order, in six steps (raw blocks'
+    hashes; split failures; host-valve blocks; the chunk-sized batch's
+    hashes, then its bytes; the K5 blocks), so that a batch split over a
+    mesh raises what the whole batch raises."""
     from . import batch as batch_mod
 
     results: list = [None] * len(stored)
@@ -225,32 +233,44 @@ def decode_large_begin(stored, block_size: int, dict_=None, checksums=None,
             dec_ops.decode_records_batch, (rows, metas, win0s), dev)
         staging = [rows, metas, win0s, *outs_h]
 
-    def assemble():
-        global host_decodes
+    # consume order: verify/raise for each block in frame order
+    def check_sum(i):
+        if checksums is not None and checksums[i] is not None:
+            if native.xxh32(stored[i][0]) != checksums[i]:
+                raise zerr.ErrBlockHash
 
-        # consume order: verify/raise for each block in frame order
-        def check_sum(i):
-            if checksums is not None and checksums[i] is not None:
-                if native.xxh32(stored[i][0]) != checksums[i]:
-                    raise zerr.ErrBlockHash
-
+    def raw_hashes():
         if checksums is not None:
             for i, (data, unc) in enumerate(stored):
                 if unc and checksums[i] is not None:
                     if native.xxh32(data) != checksums[i]:
                         raise zerr.ErrBlockHash
+
+    def split_failures():
         if failed:
             for i in failed:
                 check_sum(i)  # checksum failure reports first if both
             raise zerr.ErrDecompress
+
+    def host_blocks():
+        global host_decodes
+
         for i in host_idx:
             check_sum(i)
             results[i] = native.decompress(stored[i][0], block_size,
                                            dict_=dict_)
             host_decodes += 1
-        smalls = small_pending.result() if small_pending else []
-        for si, res in zip(small_idx, smalls):
-            results[si] = res
+
+    def small_hashes():
+        if small_pending:
+            small_pending.steps[0]()
+
+    def small_bytes():
+        if small_pending:
+            for si, res in zip(small_idx, small_pending.steps[1]()):
+                results[si] = res
+
+    def assemble():
         if large:
             outs, ns, oks = (t.numpy() for t in outs_h)
             for j, (i, recs) in enumerate(large):
@@ -264,5 +284,6 @@ def decode_large_begin(stored, block_size: int, dict_=None, checksums=None,
         return results
 
     return batch_mod.Pending(
-        assemble, staging, event=event,
+        [raw_hashes, split_failures, host_blocks, small_hashes, small_bytes,
+         assemble], staging, event=event,
         children=[small_pending] if small_pending else ())

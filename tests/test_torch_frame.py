@@ -303,6 +303,32 @@ def test_batch_layer_errors_leak_no_buffers(monkeypatch):
     assert {id(t) for t in taken} <= {id(t) for t in given}
 
 
+def test_reader_closed_with_a_batch_in_flight_returns_every_buffer(
+        monkeypatch):
+    """pending_size=2 makes 2-block batches, so read(1) leaves a read-ahead
+    batch dispatched and unconsumed; close() discards it, and every staging
+    buffer taken goes back to the pool, as does a whole read."""
+    taken, given = [], []
+    take, give = batch._pool.take, batch._pool.give
+    monkeypatch.setattr(batch._pool, "take",
+                        lambda *a: taken.append(take(*a)) or taken[-1])
+    monkeypatch.setattr(batch._pool, "give",
+                        lambda t: given.append(t) or give(t))
+    data = make_compressible(300_000, seed=55)
+    frame = plz4_tpu_torch.compress(data, backend="native", level=1,
+                                    block_size_idx=BS)
+    r = plz4_tpu_torch.Reader(io.BytesIO(frame), backend="device",
+                              device="cpu", pending_size=2)
+    r.read(1)
+    assert r._device_pending, "the read must leave a batch in flight"
+    r.close()
+    assert taken
+    assert {id(t) for t in taken} <= {id(t) for t in given}
+    assert plz4_tpu_torch.decompress(frame, backend="device",
+                                     device="cpu") == data
+    assert {id(t) for t in taken} <= {id(t) for t in given}
+
+
 def test_incompressible_fallback_and_empty_rows():
     blocks = [b"", make_incompressible(4096, seed=5), b"ab" * 2000, b"z"]
     res = batch.encode_blocks_begin(blocks, 65536, device="cpu").result()

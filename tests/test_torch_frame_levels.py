@@ -124,6 +124,31 @@ def test_frame_sizes_follow_the_ladder():
     assert len({len(_port_frame(f"l{lv}")) for lv in range(3, 8)}) == 1
 
 
+def test_level_ladder_band_against_native_levels():
+    """The ladder's sizes against the native levels, as the JAX package's
+    device level test pins them: greedy tracks native level 1, the depth-2
+    chain lands between native levels 2 and 1 and well above native level
+    12, and the deep finder at walk budget 32 never beats native level 12;
+    every block decodes through the native codec. A device level-12 frame
+    is never smaller than the native level-12 frame."""
+    from plz4_tpu_torch import native
+
+    data = make_compressible(8000, seed=41)
+    size = {}
+    for lv in (1, 3, 8, 9, 12):
+        blk = encode.encode_block_host(data, lv, device="cpu")
+        assert native.decompress(blk, len(data)) == data
+        size[lv] = len(blk)
+    n1, n2, n12 = (len(native.compress(data, level=lv)) for lv in (1, 2, 12))
+    assert abs(size[1] - n1) <= n1 * 0.02, (size[1], n1)
+    assert n2 < size[3] < n1, (n2, size[3], n1)
+    assert size[3] > n12 * 1.1, (size[3], n12)
+    assert n12 <= size[12], (n12, size[12])
+    frame12 = plz4_tpu_torch.compress(DATA, backend="native", level=12,
+                                      block_size_idx=KB64)
+    assert len(_port_frame("l12")) >= len(frame12)
+
+
 @pytest.mark.parametrize("level,kernel", [
     (3, "K2c"), (5, "K2c"), (7, "K2c"), (8, "K2d"), (9, "K4"), (10, "K4"),
     (11, "K4"), (12, "K4")])

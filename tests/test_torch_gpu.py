@@ -700,3 +700,42 @@ def test_device_checksum_frame_matches_plain_frame(cuda, block):
     assert frame == plz4_tpu_torch.compress(data, device="cpu", **kw)
     assert plz4_tpu_torch.decompress(frame, backend="device") == data
     assert plz4_tpu_torch.decompress(frame, backend="native") == data
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entries", [1, 2])
+@pytest.mark.parametrize("block", ["64KB", "4MB"])
+def test_sharded_frame_on_one_gpu_equals_unsharded_frame(cuda, entries,
+                                                         block):
+    """A mesh of 1 or 2 entries on cuda:0, each with its own stream, gives
+    the unsharded device frame, and decodes back through the mesh."""
+    from plz4_tpu_torch.parallel import dist, mesh as mesh_mod
+
+    data = corpus.silesia_like(9 * N + 4321)
+    kw = dict(level=1, device_batch=4, block_checksum=True)
+    if block == "64KB":
+        kw["block_size_idx"] = plz4_tpu_torch.BLOCK_IDX_64KB
+    else:
+        data = corpus.silesia_like(9 << 20)
+    mesh = mesh_mod.make_block_mesh([torch.device("cuda", 0)] * entries)
+    assert len({id(e.stream) for e in mesh.entries}) == entries
+    frame = dist.compress_sharded(data, mesh, **kw)
+    assert frame == plz4_tpu_torch.compress(data, backend="device", **kw)
+    assert dist.decompress_sharded(frame, mesh) == data
+    assert plz4_tpu_torch.decompress(frame, backend="native") == data
+
+
+@pytest.mark.gpu
+def test_entry_points_run_on_cuda(cuda):
+    from plz4_tpu_torch import entry
+
+    step, (data, lens) = entry.entry()
+    assert data.device.type == "cuda"
+    before = (encode.launches, decode.launches)
+    totals, compressible, flag = step(data, lens)
+    assert (encode.launches, decode.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert bool(flag) and bool(compressible.all())
+    cpu_step, cpu_args = entry.entry(device="cpu")
+    assert torch.equal(totals.cpu(), cpu_step(*cpu_args)[0])
+    entry.dryrun_multichip(2)

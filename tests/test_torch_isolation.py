@@ -40,7 +40,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "plz4_tpu_torch.ops.encode_wide", "plz4_tpu_torch.ops.xxh32",
                 "plz4_tpu_torch.parallel.batch",
                 "plz4_tpu_torch.parallel.large", "plz4_tpu_torch.api",
-                "plz4_tpu_torch.native", "plz4_tpu_torch.engine.writer"):
+                "plz4_tpu_torch.native", "plz4_tpu_torch.engine.writer",
+                "plz4_tpu_torch.parallel.mesh", "plz4_tpu_torch.parallel.dist",
+                "plz4_tpu_torch.entry"):
         assert mod in res["imported"]
 
 
