@@ -43,7 +43,16 @@ kernels:
     a dictionary and block checksums on 2 entries; two ranks over gloo in
     two subprocesses, both on cuda:0, whose frames must equal the
     unsharded frame, with the gather's share of their walls; entry() and
-    dryrun_multichip(2) and (4) on cuda.
+    dryrun_multichip(2) and (4) on cuda;
+  * the array path and the CLI (phase 20): the torch tensor programs A1
+    and A2 (ops/encode_array.py, ops/decode_array.py) on cuda against
+    themselves on the CPU and against digests of the JAX package's array
+    encoder, 32 MiB array-path frames (64 KiB blocks at levels 1 and 9,
+    4 MiB blocks, a dictionary, block checksums) that launch no encode or
+    decode kernel, entry_array(), and `python -m plz4_tpu_torch` in
+    subprocesses on a 256 MiB file at the defaults (compress, decompress,
+    verify), a 64 MiB file at 64 KiB blocks with block checksums (verify
+    in process) and an 8 MiB bakeoff.
 
     python3 chip_smoke.py
 
@@ -54,8 +63,10 @@ before it holds the per-kernel measurements as one JSON object.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
+import io
 import json
 import math
 import os
@@ -80,6 +91,13 @@ WIDE = 256 << 10  # the packed-word kernels' row width held to plain
 # byte-exact, so the kernels must give the same streams
 LEVEL_RATIOS = {3: 2.4158, 8: 2.4224, 9: 2.4390, 10: 2.4736, 11: 2.4892,
                 12: 2.4917}
+# A1 over the same 32 rows per level: the ratio and the first 16 hex digits
+# of sha256(out rows, totals as <i4, compressible as u8), computed once from
+# the JAX package's array encoder (encode_jax.encode_batch) on the CPU
+ARRAY_DIGESTS = {1: (2.3794, "8cd94685710218a9"),
+                 3: (2.4018, "c5340da6c6761404"),
+                 8: (2.4163, "2fc4608a6a0c8171"),
+                 9: (2.4291, "ae4a90ece0dba778")}
 
 
 def bench_corpus(size: int) -> bytes:
@@ -465,6 +483,278 @@ def sharded_phase(plz4, smi: str, reset, read, dict64: bytes) -> None:
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
 
 
+def array_phase(plz4, smi: str, reset, read, dict64: bytes) -> None:
+    """Phase 20: A1 and A2 on cuda against the CPU; array-path frames,
+    which launch no encode or decode kernel; entry_array(); the CLI in
+    subprocesses."""
+    import shutil
+
+    import torch
+
+    from plz4_tpu_torch import cli, corpus, entry, native
+    from plz4_tpu_torch.ops import decode_array, encode_array
+    from plz4_tpu_torch.parallel import large
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda", 0)
+
+    def same(what, fn, *args):
+        """fn over host tensors on cuda and on the CPU: max abs err 0 on
+        every output. Returns the CPU outputs."""
+        got = fn(*[a.to(cuda) if torch.is_tensor(a) else a for a in args])
+        want = fn(*args)
+        err = max(int((g.cpu().long() - w.long()).abs().max())
+                  if w.numel() else 0 for g, w in zip(got, want))
+        check(err == 0, f"phase 20 {what}: cuda equals cpu (max abs err "
+                        f"{err})")
+        return want
+
+    def tensors(payloads, width):
+        return [torch.from_numpy(x) for x in rows_of(payloads, width)]
+
+    # (a) A1 and A2 against themselves on the CPU
+    bench = bench_corpus(32 * BLOCK)
+    bench_rows = [bench[i:i + BLOCK] for i in range(0, len(bench), BLOCK)]
+    rows, lens = tensors(bench_rows, BLOCK)
+    for level, (ratio, digest) in ARRAY_DIGESTS.items():
+        out, tot, okc = same(f"A1 level {level}, the bench corpus's 32 rows",
+                             encode_array.encode_batch, rows, lens, level)
+        if level == 1:
+            bench_streams = [out[i, :tot[i]].numpy().tobytes()
+                             for i in range(32)]
+        h = hashlib.sha256(out.numpy().tobytes()
+                           + tot.numpy().astype("<i4").tobytes()
+                           + okc.numpy().astype(np.uint8).tobytes())
+        r = 32 * BLOCK / int(tot.sum())
+        check(round(r, 4) == ratio and h.hexdigest()[:16] == digest,
+              f"A1 level {level}: ratio {r:.4f} and digest equal the JAX "
+              f"array encoder's")
+    edges = edge_payloads() + list(corpus.greedy_edge_rows()[0].values())
+    erows, elens = tensors(edges, BLOCK)
+    for level in (1, 9):
+        same(f"A1 level {level}, {len(edges)} edge rows",
+             encode_array.encode_batch, erows, elens, level)
+    wins, wl = tensors([dict64, dict64[-1000:], b"", dict64[:17]] * 4, BLOCK)
+    same("A1 after windows (full, partial, none, 17 bytes)",
+         encode_array.encode_batch_dict, rows[:16], lens[:16], wins, wl, 3)
+    C = BLOCK + 16
+    streams = [s for s in bench_streams + [
+        native.compress(p, level=lv) for p in edges[:10] for lv in (1, 12)]
+               if len(s) <= C]
+    bad = corrupt_streams(streams)
+    bad += [s[: len(s) // 2] for s in streams[:8]]  # truncated
+    crows, clens = tensors(streams + bad, C)
+    out, n, okd = same(f"A2, {len(streams)} streams and {len(bad)} damaged",
+                       decode_array.decode_batch, crows, clens, BLOCK)
+    okv = okd.numpy()
+    check(bool(okv[:len(streams)].all()) and not okv[len(streams):][
+        :4].any() and all(out[i, :n[i]].numpy().tobytes() == bench_rows[i]
+                          for i in range(32)),
+          "A2 verdicts: valid streams ok and intact, bad offsets refused")
+    dstreams = [native.compress(p, level=1, dict_=dict64)
+                for p in bench_rows[:8] + [dict64[-3000:], dict64[:2000]]]
+    drows, dlens = tensors(dstreams, C)
+    dbuf = torch.from_numpy(np.frombuffer(dict64, np.uint8).copy())
+    _, _, okd = same("A2 against a 64 KiB dictionary",
+                     decode_array.decode_batch_dict, drows, dlens, dbuf,
+                     len(dict64), BLOCK)
+    check(bool(okd.all()), "A2 decodes every dictionary stream")
+    for name, (a, nn, cap, _) in corpus.decode_edge_batches().items():
+        same(f"A2, the {len(nn)} {name} decode edge rows",
+             decode_array.decode_batch, torch.from_numpy(a),
+             torch.from_numpy(nn), cap)
+
+    # A1 and A2 at the main path's shape: 128 rows of 64 KiB
+    main_rows = corpus.silesia_like(ROWS * BLOCK)
+    m_in = [x.to(cuda) for x in tensors(
+        [main_rows[i:i + BLOCK] for i in range(0, ROWS * BLOCK, BLOCK)],
+        BLOCK)]
+    a1_out, a1_tot, _ = encode_array.encode_batch(*m_in, 1)
+    a1_ms = cuda_ms(lambda: encode_array.encode_batch(*m_in, 1), 5)
+    a1_plain_ms = host_ms(lambda: encode_array.encode_batch(
+        *[x.cpu() for x in m_in], 1))[1]
+    d_rows = torch.zeros((ROWS, C), dtype=torch.uint8, device=cuda)
+    d_rows[:, :C] = a1_out[:, :C]
+    d_in = (d_rows, a1_tot)
+    dec_out = decode_array.decode_batch(*d_in, BLOCK)
+    check(bool(dec_out[2].all()) and torch.equal(dec_out[0], m_in[0]),
+          "A2 decodes A1's 128 main-path rows on cuda")
+    a2_ms = cuda_ms(lambda: decode_array.decode_batch(*d_in, BLOCK), 5)
+    a2_plain_ms = host_ms(lambda: decode_array.decode_batch(
+        *[x.cpu() for x in d_in], BLOCK))[1]
+    cap = encode_array.out_width(BLOCK)
+    a1_bound = bound_ms(ROWS * BLOCK + 4 * ROWS + ROWS * cap + 5 * ROWS,
+                        OPS_PER_BYTE * ROWS * BLOCK)
+    a2_bound = bound_ms(int(a1_tot.sum()) + 4 * ROWS + ROWS * BLOCK
+                        + 5 * ROWS, OPS_PER_BYTE * ROWS * BLOCK)
+    print(f"phase 20 [{smi}]: A1 level 1 {a1_ms:.3f} ms, A2 {a2_ms:.3f} ms "
+          f"per {ROWS} x 64 KiB rows (CPU {a1_plain_ms:.1f} / "
+          f"{a2_plain_ms:.1f} ms); byte bounds {a1_bound[0]:.4f} / "
+          f"{a2_bound[0]:.4f} ms")
+    del m_in, d_rows, d_in, dec_out, a1_out
+
+    # (b) array-path frames on the card, 32 MiB of the bench corpus
+    data = bench_corpus(32 << 20)
+    head = data[: 2 << 20]
+    kernel_keys = [k for k in read() if k != "xxh32.launches"]
+    warm = dict(backend="device", array_path=True,
+                block_size_idx=plz4.BLOCK_IDX_64KB)
+    check(plz4.decompress(plz4.compress(head, **warm), **warm) == head,
+          "array-path warm-up round trip")
+    for what, kw in (
+            ("64 KiB blocks, level 1",
+             dict(block_size_idx=plz4.BLOCK_IDX_64KB, level=1)),
+            ("64 KiB blocks, level 9",
+             dict(block_size_idx=plz4.BLOCK_IDX_64KB, level=9)),
+            ("4 MiB blocks, level 1", dict(level=1)),
+            ("a dictionary, 64 KiB blocks",
+             dict(block_size_idx=plz4.BLOCK_IDX_64KB, dictionary=dict64)),
+            ("block checksums, 64 KiB blocks",
+             dict(block_size_idx=plz4.BLOCK_IDX_64KB, block_checksum=True))):
+        kw = dict(kw, backend="device", array_path=True)
+        d = kw.get("dictionary")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        frame, t_e = host_ms(lambda: plz4.compress(data, **kw))
+        torch.cuda.synchronize()
+        back, t_d = host_ms(lambda: plz4.decompress(frame, **kw))
+        torch.cuda.synchronize()
+        c = read()
+        peak = torch.cuda.max_memory_allocated()
+        ran = {k: c[k] for k in kernel_keys if c[k]}
+        check(back == data and not ran
+              and (c["xxh32.launches"] > 0) == bool(kw.get("block_checksum")),
+              f"array path, {what}: round trip intact, no encode or decode "
+              f"kernel launched ({ran}), K7 {c['xxh32.launches']}")
+        check(plz4.decompress(frame, backend="native", dictionary=d) == data,
+              f"array path, {what}: the frame decodes through native")
+        check(plz4.compress(head, **kw) == plz4.compress(
+            head, **dict(kw, device="cpu")),
+              f"array path, {what}: the first 2 MiB's frame equals the "
+              f'device="cpu" frame')
+        gb = len(data) / 1e9
+        print(f"phase 20 array path, 32 MiB, {what} [{smi}]: encode "
+              f"{gb / (t_e / 1e3):.3f} GB/s, decode {gb / (t_d / 1e3):.3f} "
+              f"GB/s, ratio {len(data) / len(frame):.4f}, large blocks "
+              f"decoded on the host {large.array_host_decodes} (valve "
+              f"{large.host_decodes}), peak device memory "
+              f"{peak / 2**20:.1f} MiB")
+        del frame, back
+    kw = dict(backend="device", block_size_idx=plz4.BLOCK_IDX_64KB)
+    reset()
+    check(plz4.decompress(plz4.compress(head, **kw), **kw) == head, "the "
+          "same 2 MiB with the option off round trips")
+    c = read()
+    check(c["encode.launches"] > 0 and c["decode.launches"] > 0,
+          f"with the option off K2a ({c['encode.launches']}) and K1 "
+          f"({c['decode.launches']}) ran")
+
+    # (c) the entry step
+    step, args = entry.entry_array()
+    reset()
+    got = step(*args)
+    c = read()
+    cstep, cargs = entry.entry_array("cpu")
+    want = cstep(*cargs)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+          and bool(got[2]) and not any(c[k] for k in kernel_keys),
+          f"entry_array() on cuda equals entry_array('cpu') (totals "
+          f"{got[0].tolist()}) and launches no kernel")
+
+    # (d) the CLI: `python -m plz4_tpu_torch` in subprocesses
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "phase20")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        big = os.path.join(work, "bench256.bin")
+        with open(big, "wb") as f:
+            for _ in range(8):
+                f.write(data)
+        mid = os.path.join(work, "bench64.bin")
+        with open(mid, "wb") as f:
+            f.write(data * 2)
+        small = os.path.join(work, "bench8.bin")
+        with open(small, "wb") as f:
+            f.write(data[: 8 << 20])
+
+        def run(*argv):
+            t0 = time.perf_counter()
+            p = subprocess.run(
+                [sys.executable, "-m", "plz4_tpu_torch", *argv], cwd=root,
+                capture_output=True, text=True, timeout=300)
+            wall = time.perf_counter() - t0
+            check(p.returncode == 0, f"plz4_tpu_torch {' '.join(argv[:3])} "
+                                     f"exited 0 ({wall:.1f} s)"
+                  + ("" if p.returncode == 0 else "\n" + p.stderr[-3000:]))
+            return p.stdout + p.stderr, wall
+
+        def verify_in_process(frame):
+            """cli.main's verify in this process: a subprocess would repeat
+            the decompress's start-up (PERF.md, PR 12)."""
+            t0 = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["--backend", "device", "verify", frame])
+            return (buf.getvalue() if rc == 0 else ""), \
+                time.perf_counter() - t0
+
+        walls = []
+        # the 64 KiB pass runs on 64 MiB and verifies in this process, to
+        # keep the phase near its ~90 s
+        for what, src, reps, flags, sub_verify in (
+                ("defaults", big, 8, [], True),
+                ("--bs 64KB --bx", mid, 2, ["--bs", "64KB", "--bx"], False)):
+            frame, back = src + ".lz4", src + ".out"
+            out_c, w_c = run("--backend", "device", "compress", src, "-o",
+                             frame, "-f", *flags)
+            out_d, w_d = run("--backend", "device", "decompress", frame,
+                             "-o", back, "-f")
+            out_v, w_v = (run("--backend", "device", "verify", frame)
+                          if sub_verify else verify_in_process(frame))
+            with open(back, "rb") as f:
+                check(f.read() == data * reps, f"CLI {what}: {32 * reps} "
+                                               "MiB round trip intact")
+            check(f"OK: {reps * len(data)} bytes" in out_v,
+                  f"CLI {what}: verify OK")
+            walls.append(f"{what}, {32 * reps} MiB: compress {w_c:.1f} s ("
+                         + out_c.strip().splitlines()[-1] + "), decompress "
+                         f"{w_d:.1f} s (" + out_d.strip().splitlines()[-1]
+                         + f"), verify {w_v:.1f} s"
+                         + ("" if sub_verify else " in process"))
+            os.remove(frame)
+            os.remove(back)
+        out_b, w_b = run("bakeoff", small, "--device", "-q")
+        rows_b = [ln for ln in out_b.splitlines()
+                  if ln.split()[:2] in (["device", "1"], ["plz4", "1"])]
+        check(len(rows_b) == 2, "bakeoff --device printed its L1 rows")
+        print(f"phase 20 CLI walls, subprocesses with start-up [{smi}]: "
+              + "; ".join(walls) + f"; bakeoff --device -q on 8 MiB "
+              f"{w_b:.1f} s: " + " | ".join(" ".join(r.split())
+                                             for r in rows_b))
+        # in-process: the CLI's device backend runs the kernels
+        frame = small + ".lz4"
+        for flags, keys in (
+                ([], ("encode.window_launches", "decode.record_launches")),
+                (["--bs", "64KB", "--bx"],
+                 ("encode.launches", "decode.launches", "xxh32.launches"))):
+            reset()
+            rc = cli.main(["--backend", "device", "compress", small, "-o",
+                           frame, "-f", "-q", *flags])
+            rc |= cli.main(["--backend", "device", "decompress", frame, "-o",
+                            small + ".out", "-f", "-q"])
+            c = read()
+            with open(small + ".out", "rb") as f:
+                check(rc == 0 and f.read() == data[: 8 << 20]
+                      and all(c[k] > 0 for k in keys),
+                      f"cli.main {' '.join(flags) or 'defaults'}: round "
+                      f"trip intact, {', '.join(f'{k} {c[k]}' for k in keys)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -490,7 +780,7 @@ def main() -> int:
     def reset():
         for mod, attr in counters:
             setattr(mod, attr, 0)
-        large.host_decodes = 0
+        large.host_decodes = large.array_host_decodes = 0
 
     def read():
         return {f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(mod, attr)
@@ -1563,6 +1853,9 @@ def main() -> int:
 
     # ---- 19. sharded frames and the entry points -------------------------
     sharded_phase(plz4, smi, reset, read, dict64)
+
+    # ---- 20. the array path and the CLI ----------------------------------
+    array_phase(plz4, smi, reset, read, dict64)
 
     mid_bound = {d4: row_bound(mid[d4][3]) for d4 in mid}
     deep_bound = row_bound(deep[2][3])

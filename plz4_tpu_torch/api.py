@@ -8,7 +8,8 @@ place of functional options. All reference options are supported:
   level, block_checksum, block_size_idx (or byte size), block_linked,
   content_size, dict_id, read_offset, content_size_check, skip_callback,
   dict_callback, backend ("native" host codec / "device" CUDA kernels / "auto"),
-  device ("cuda", or "cpu" for the kernels' plain versions).
+  device ("cuda", or "cpu" for the kernels' plain versions), array_path
+  (the device backend through the tensor programs A1/A2).
 """
 
 from __future__ import annotations

@@ -396,7 +396,7 @@ class FrameReader:
                 dict_=self._frame_dict,
                 checksums=[b.checksum for b in batch]
                 if h.block_checksum else None,
-                device=self._device))
+                device=self._device, array_path=self._o.array_path))
         if not self._device_pending:
             return None
         self._device_queue.extend(self._device_pending.popleft().result())

@@ -433,7 +433,7 @@ class FrameWriter:
                 blocks, self._o.block_size, level=self._o.level,
                 dicts=dicts if any(d for d in dicts) else None,
                 with_checksums=self._o.block_checksum,
-                device=self._device)
+                device=self._device, array_path=self._o.array_path)
             self._device_pending.append((pending, blocks))
         while (self._device_pending if wait_all
                else len(self._device_pending) > 1):

@@ -88,6 +88,12 @@ class Options:
     # torch device of the device backend: "cuda" runs the CUDA kernels,
     # "cpu" their plain versions (tests)
     device: str = "cuda"
+    # route the device backend through the torch tensor programs A1/A2
+    # (ops/encode_array.py, ops/decode_array.py) in place of the encode and
+    # decode kernels: the JAX package's device path off the TPU, whose
+    # frames it reproduces byte for byte (checksums stay on K7); needs
+    # backend="device"
+    array_path: bool = False
 
     def __post_init__(self) -> None:
         self.level = clamp_level(self.level)
@@ -100,6 +106,8 @@ class Options:
             self.dictionary = self.dictionary[-WINDOW_SIZE:]
         if self.backend not in ("native", "device", "auto"):
             raise ValueError(f"unknown backend {self.backend!r}")
+        if self.array_path and self.backend != "device":
+            raise ValueError("array_path=True needs backend='device'")
 
     @property
     def block_size(self) -> int:

@@ -28,6 +28,15 @@ rows. Raw pass-through blocks verify on the host (native.xxh32).
 On device="cpu" the same layer runs the kernels' plain versions
 synchronously (tests).
 
+array_path=True (Options.array_path) routes the codec through the torch
+tensor programs A1 and A2 (ops/encode_array.py, ops/decode_array.py) in
+place of the encode and decode kernels, as the JAX package does off the
+TPU: plain rows through A1, rows after a window (dictionaries, linked
+blocks, the large-block chunks) through A1's window variant, and blocks of
+at most 64 KiB through A2; large blocks of several records decode on the
+host (large.py). Block checksums stay on K7. The frames are the JAX
+package's device-backend frames on a non-TPU backend, byte for byte.
+
 Under a block mesh (mesh.py: an active one, or one passed as `device`),
 encode_blocks_begin and decode_blocks_begin shard once, at the top, before
 the large-block route: each entry's contiguous slice of the batch runs
@@ -48,7 +57,9 @@ import torch
 
 from .. import errors as zerr
 from ..ops import decode as dec_ops
+from ..ops import decode_array as dec_arr
 from ..ops import encode as enc_ops
+from ..ops import encode_array as enc_arr
 from ..ops import encode_deep as deep_ops
 from ..ops import encode_mid as mid_ops
 from ..ops import xxh32 as xxh_ops
@@ -91,6 +102,21 @@ def dispatch_encode_dict(data, lens, windows, wlens, level: int,
     return deep_ops.encode_batch_deep_window(
         data, lens, windows, wlens, tries=_DEEP_TRIES.get(level, 32),
         chunks=chunks)
+
+
+def dispatch_encode_dict_array(data, lens, windows, wlens, level: int,
+                               wstride: int = 1, chunks: int = 1):
+    """A1 over rows after a window prefix: dispatch_encode_dict's
+    signature on the array path. wstride is ignored, as the JAX package's
+    array path ignores it. With chunks > 1 the rows are groups of `chunks`
+    chunk rows (large.py) and windows holds each group's chunk-0 window:
+    every later chunk's window is the chunk row before it, built here on
+    the device."""
+    if chunks > 1:
+        rows = data.reshape(windows.shape[0], chunks, -1)
+        windows = torch.cat([windows[:, None], rows[:, :-1]],
+                            dim=1).reshape(data.shape)
+    return enc_arr.encode_batch_dict(data, lens, windows, wlens, level)
 
 
 def _pow2(n: int) -> int:
@@ -299,7 +325,7 @@ def _dispatch(kernel, host_args, dev: torch.device, extra=()):
 def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
                         dicts: list[bytes | None] | None = None,
                         with_checksums: bool = False,
-                        device=None) -> Pending:
+                        device=None, array_path: bool = False) -> Pending:
     """Dispatch a device encode batch and return a Pending (the engine
     overlaps the next batch's staging with this one's compute).
 
@@ -308,8 +334,8 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
     snapshotted before dispatch (reference: async/writer.go:412-437).
     Returns [(stored_bytes, uncompressed_flag)] in order, applying the
     incompressible-fallback contract per block. The level picks the kernel
-    (dispatch_encode); with_checksums=True appends each stored block's
-    xxh32, hashed on the device (zero host hashing).
+    (dispatch_encode), or array_path=True A1; with_checksums=True appends
+    each stored block's xxh32, hashed on the device (zero host hashing).
     """
     if not blocks:
         return Pending(list, ())
@@ -323,7 +349,8 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
             encode_blocks_begin(
                 blocks[lo:hi], block_size, level=level,
                 dicts=dicts[lo:hi] if dicts is not None else None,
-                with_checksums=with_checksums, device=dev)))
+                with_checksums=with_checksums, device=dev,
+                array_path=array_path)))
     if block_size > MAX_BLOCK:
         from . import large
 
@@ -332,7 +359,8 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
             # chunks in parallel, stitch into standard LZ4 blocks
             return large.encode_large_begin(
                 blocks, block_size, level=level, dicts=dicts,
-                with_checksums=with_checksums, device=device)
+                with_checksums=with_checksums, device=device,
+                array_path=array_path)
         block_size = large.CHUNK  # all blocks fit one chunk row
     dev = resolve_device(device)
     pinned = dev.type == "cuda"
@@ -362,9 +390,12 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
                 da[i, WINDOW - len(d):] = np.frombuffer(d, dtype=np.uint8)
                 dl[i] = len(d)
         staging += [darr, dlens]
-        kernel, args = dispatch_encode_dict, (arr, lens, darr, dlens)
+        kernel = (dispatch_encode_dict_array if array_path
+                  else dispatch_encode_dict)
+        args = (arr, lens, darr, dlens)
     else:
-        kernel, args = dispatch_encode, (arr, lens)
+        kernel = enc_arr.encode_batch if array_path else dispatch_encode
+        args = (arr, lens)
     if with_checksums:
         kernel = _encode_hashed(kernel)
     outs_h, event = _dispatch(kernel, args, dev, extra=(level,))
@@ -398,13 +429,14 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
 def decode_blocks_begin(stored: list[tuple[bytes, bool]], block_size: int,
                         dict_: bytes | None = None,
                         checksums: list | None = None,
-                        device=None) -> Pending:
+                        device=None, array_path: bool = False) -> Pending:
     """Dispatch a device decode batch of (stored_bytes, uncompressed_flag)
     blocks; Pending.result() yields the decoded bytes in order.
 
     Uncompressed blocks pass through (reference: async/reader.go:149-163
     routes them around the workers). Blocks over 64 KiB go to large.py;
-    with a frame dictionary the blocks decode through K3. `checksums`, when
+    with a frame dictionary the blocks decode through K3 (array_path=True:
+    every block of at most 64 KiB through A2). `checksums`, when
     given, carries the frame's expected per-block xxh32 values: compressed
     blocks verify in one K7 launch per batch, raw pass-through blocks on
     the host at result() time, which raises ErrBlockHash before
@@ -423,14 +455,15 @@ def decode_blocks_begin(stored: list[tuple[bytes, bool]], block_size: int,
             decode_blocks_begin(
                 stored[lo:hi], block_size, dict_=dict_,
                 checksums=checksums[lo:hi] if checksums is not None else None,
-                device=dev)))
+                device=dev, array_path=array_path)))
     if block_size > MAX_BLOCK:
         from . import large
 
         # large-BD frames: split each block at sequence boundaries; K5
         # decodes the records of multi-record blocks in order
         return large.decode_large_begin(stored, block_size, dict_=dict_,
-                                        checksums=checksums, device=device)
+                                        checksums=checksums, device=device,
+                                        array_path=array_path)
     comp_idx = [i for i, (_, unc) in enumerate(stored) if not unc]
     results: list[bytes | None] = [
         data if unc else None for (data, unc) in stored]
@@ -465,17 +498,21 @@ def decode_blocks_begin(stored: list[tuple[bytes, bool]], block_size: int,
     if dict_:
         # the dictionary right-aligned in one 64 KiB window row, shared by
         # the batch (offsets reach at most 65535 bytes back, so the last
-        # 64 KiB is all of it that a block can use)
+        # 64 KiB is all of it that a block can use); A2's row is the pow2
+        # bucket of the dictionary, as in the JAX package
         d = dict_[-WINDOW:]
-        dbuf = _pool.take((WINDOW,), torch.uint8, pinned)
+        D = _pow2(max(16, len(d))) if array_path else WINDOW
+        dbuf = _pool.take((D,), torch.uint8, pinned)
         db = dbuf.numpy()
-        db[: WINDOW - len(d)] = 0
-        db[WINDOW - len(d):] = np.frombuffer(d, dtype=np.uint8)
+        db[: D - len(d)] = 0
+        db[D - len(d):] = np.frombuffer(d, dtype=np.uint8)
         staging.append(dbuf)
-        kernel, args, extra = (dec_ops.decode_batch_dict, (arr, clens, dbuf),
-                               (len(d), block_size))
+        kernel = (dec_arr.decode_batch_dict if array_path
+                  else dec_ops.decode_batch_dict)
+        args, extra = (arr, clens, dbuf), (len(d), block_size)
     else:
-        kernel, args, extra = dec_ops.decode_batch, (arr, clens), (block_size,)
+        kernel = dec_arr.decode_batch if array_path else dec_ops.decode_batch
+        args, extra = (arr, clens), (block_size,)
     hashed = checksums is not None and any(
         checksums[i] is not None for i in comp_idx)
     if hashed:

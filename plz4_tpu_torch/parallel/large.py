@@ -26,6 +26,12 @@ assemble time over the stitched (encode) or stored (decode) bytes, which
 exist on the host only, as in the JAX package; blocks of at most 64 KiB in a
 large-BD frame go through the batch layer and hash on the device (K7).
 
+With array_path=True (batch.py) the chunk rows encode through A1's window
+variant, each chunk's window built on the device from the chunk before it
+(wstride ignored), and blocks of several records decode on the host
+through native, as the JAX package's non-TPU path does (the carry-record
+formulation is a kernel's).
+
 Under a block mesh this layer is not sharded itself: batch.py splits the
 batch over the mesh before its large-block route, so each slice arrives
 here with its entry's device (the JAX package shards the chunk and record
@@ -51,7 +57,8 @@ CHUNK_IN = 83968
 # has none
 CHUNK_WSTRIDE = 2
 
-host_decodes = 0  # blocks decoded on the host: a record over CHUNK_IN
+host_decodes = 0  # blocks decoded on the host for a record over CHUNK_IN
+array_host_decodes = 0  # array path: blocks of several records, on the host
 
 
 def stage_chunks(blocks, dicts, a, ln, wl, da) -> None:
@@ -105,7 +112,7 @@ def stage_records(items, dict_, r, m, w) -> None:
 
 def encode_large_begin(blocks, block_size: int, level: int = 1,
                        dicts=None, with_checksums: bool = False,
-                       device=None):
+                       device=None, array_path: bool = False):
     """Large-block analog of batch.encode_blocks_begin: blocks may mix
     sizes (a frame's tail block can be <= 64 KiB; those go through the
     chunk-sized batch); returns a Pending with the same result layout."""
@@ -118,7 +125,8 @@ def encode_large_begin(blocks, block_size: int, level: int = 1,
         small_pending = batch_mod.encode_blocks_begin(
             [blocks[i] for i in small_idx], CHUNK, level=level,
             dicts=[dicts[i] for i in small_idx] if dicts else None,
-            with_checksums=with_checksums, device=device)
+            with_checksums=with_checksums, device=device,
+            array_path=array_path)
     if not large_idx:
         return small_pending
 
@@ -137,9 +145,10 @@ def encode_large_begin(blocks, block_size: int, level: int = 1,
                  [dicts[i] for i in large_idx] if dicts else None,
                  arr.numpy().reshape(B, K, CHUNK), lens.numpy().reshape(B, K),
                  wlens.numpy().reshape(B, K), d0.numpy())
+    kernel = (batch_mod.dispatch_encode_dict_array if array_path
+              else batch_mod.dispatch_encode_dict)
     outs_h, event = batch_mod._dispatch(
-        batch_mod.dispatch_encode_dict, (arr, lens, d0, wlens), dev,
-        extra=(level, CHUNK_WSTRIDE, K))
+        kernel, (arr, lens, d0, wlens), dev, extra=(level, CHUNK_WSTRIDE, K))
     out, totals, _ = outs_h
 
     def assemble():
@@ -175,7 +184,7 @@ def encode_large_begin(blocks, block_size: int, level: int = 1,
 
 
 def decode_large_begin(stored, block_size: int, dict_=None, checksums=None,
-                       device=None):
+                       device=None, array_path: bool = False):
     """Large-block analog of batch.decode_blocks_begin for frames whose BD
     class exceeds 64 KiB. Per compressed block, the native splitter yields
     its record layout; single-record blocks take the chunk-sized batch
@@ -191,7 +200,7 @@ def decode_large_begin(stored, block_size: int, dict_=None, checksums=None,
     small_idx: list[int] = []      # single carry-free record, K1 / K3
     large: list[tuple[int, np.ndarray]] = []   # (block idx, records), K5
     failed: list[int] = []         # malformed at split time
-    host_idx: list[int] = []       # valve: a record exceeds CHUNK_IN
+    host_idx: list[int] = []       # valve, or the array path: native
     for i, (data, unc) in enumerate(stored):
         if unc:
             results[i] = data
@@ -201,7 +210,7 @@ def decode_large_begin(stored, block_size: int, dict_=None, checksums=None,
             failed.append(i)
         elif len(recs) == 1 and len(data) <= CHUNK:
             small_idx.append(i)
-        elif int(recs[:, 1].max()) > CHUNK_IN - 8:
+        elif array_path or int(recs[:, 1].max()) > CHUNK_IN - 8:
             host_idx.append(i)
         else:
             large.append((i, recs))
@@ -211,7 +220,7 @@ def decode_large_begin(stored, block_size: int, dict_=None, checksums=None,
         small_pending = batch_mod.decode_blocks_begin(
             [(stored[i][0], False) for i in small_idx], CHUNK, dict_=dict_,
             checksums=[checksums[i] for i in small_idx]
-            if checksums else None, device=device)
+            if checksums else None, device=device, array_path=array_path)
 
     staging: list = []
     event = None
@@ -253,13 +262,16 @@ def decode_large_begin(stored, block_size: int, dict_=None, checksums=None,
             raise zerr.ErrDecompress
 
     def host_blocks():
-        global host_decodes
+        global host_decodes, array_host_decodes
 
         for i in host_idx:
             check_sum(i)
             results[i] = native.decompress(stored[i][0], block_size,
                                            dict_=dict_)
-            host_decodes += 1
+            if array_path:
+                array_host_decodes += 1
+            else:
+                host_decodes += 1
 
     def small_hashes():
         if small_pending:

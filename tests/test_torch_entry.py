@@ -2,10 +2,12 @@
 against the JAX package's __graft_entry__.py on JAX's CPU, and the device
 example.
 
-The JAX step runs the array path (encode_jax / decode_jax), whose parse
-differs from the CUDA kernels', so the steps' `totals` differ; their
-`compressible` flags, their round trips and their validity flags must be
-equal.
+The JAX step runs the array path (encode_jax / decode_jax): entry_array()
+runs the port's array path (A1 / A2), so its totals, compressible flags
+and validity flag must equal the JAX step's exactly. entry() runs the
+kernels, whose parse differs from the array path's, so its `totals`
+differ; its `compressible` flags, its round trip and its validity flag
+must be equal.
 """
 
 import os
@@ -44,6 +46,32 @@ def test_entry_step_matches_the_jax_entry():
     assert (dec.numpy() == data.numpy()).all() and bool(good.all())
 
 
+def test_entry_array_step_equals_the_jax_entry():
+    step, (data, lens) = entry.entry_array(device="cpu")
+    assert data.device.type == "cpu" and data.shape == (4, entry.BLOCK)
+    totals, compressible, flag = step(data, lens)
+    jstep, jargs = graft.entry()
+    jtotals, jcompressible, jflag = (np.asarray(x) for x in jstep(*jargs))
+    assert (data.numpy() == np.asarray(jargs[0])).all()
+    assert (lens.numpy() == np.asarray(jargs[1])).all()
+    assert totals.dtype == torch.int32 and (totals.numpy() == jtotals).all()
+    assert (compressible.numpy() == jcompressible).all()
+    assert bool(flag) == bool(jflag) is True
+
+
+def test_entry_array_step_flags_a_row_that_does_not_come_back(monkeypatch):
+    step, (data, lens) = entry.entry_array(device="cpu")
+    real = entry.dec_arr.decode_batch
+
+    def broken(comp, clens, cap):
+        out, n, ok = real(comp, clens, cap)
+        out[2, 11] ^= 1
+        return out, n, ok
+
+    monkeypatch.setattr(entry.dec_arr, "decode_batch", broken)
+    assert not bool(step(data, lens)[2])
+
+
 def test_entry_step_flags_a_row_that_does_not_come_back(monkeypatch):
     """The flag is the round trip's: a decode that disagrees clears it."""
     step, (data, lens) = entry.entry(device="cpu")
@@ -70,6 +98,8 @@ def test_nothing_runs_on_the_cpu_unless_asked():
         mesh_mod.make_block_mesh()
     with pytest.raises(RuntimeError, match="CUDA"):
         entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.entry_array()
     with pytest.raises(RuntimeError, match="CUDA"):
         entry.dryrun_multichip(2)
 

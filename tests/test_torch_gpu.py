@@ -739,3 +739,125 @@ def test_entry_points_run_on_cuda(cuda):
     cpu_step, cpu_args = entry.entry(device="cpu")
     assert torch.equal(totals.cpu(), cpu_step(*cpu_args)[0])
     entry.dryrun_multichip(2)
+
+
+# --- the array path (A1, A2) and the CLI ------------------------------------
+
+
+def _launch_counts():
+    return (encode.launches, encode.window_launches, encode_mid.launches,
+            encode_mid.window_launches, encode_deep.launches,
+            encode_deep.window_launches, decode.launches,
+            decode.dict_launches, decode.record_launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", [1, 3, 9])
+def test_array_encode_on_cuda_equals_cpu(cuda, level):
+    from plz4_tpu_torch.ops import encode_array
+
+    rows, lens = _rows(_payloads(), N)
+    got = encode_array.encode_batch(rows.to(cuda), lens.to(cuda), level)
+    want = encode_array.encode_batch(rows, lens, level)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    text = corpus.silesia_like(4 * N, seed=3)
+    wins, wl = _rows([text[:N], text[N:N + 1000], b"", text[:17]], N)
+    data, dl = _rows([text[N:2 * N], text[2 * N:3 * N], text[:500], b""], N)
+    got = encode_array.encode_batch_dict(data.to(cuda), dl.to(cuda),
+                                         wins.to(cuda), wl.to(cuda), level)
+    want = encode_array.encode_batch_dict(data, dl, wins, wl, level)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_array_decode_on_cuda_equals_cpu(cuda):
+    from plz4_tpu_torch.ops import decode_array
+
+    streams = [native.compress(p, level=lv) for p in _payloads()
+               for lv in (1, 12)]
+    streams = [s for s in streams if len(s) <= C]
+    rng = np.random.default_rng(29)
+    for k in range(12):
+        s = bytearray(streams[-1 - k % 8])
+        if k % 2:
+            s = s[: int(rng.integers(1, len(s)))]
+        else:
+            s[int(rng.integers(len(s)))] ^= 0xFF
+        streams.append(bytes(s))
+    streams += [bytes([0x04, 50, 0]), b"\xff" * 40]
+    rows, clens = _rows(streams, C)
+    got = decode_array.decode_batch(rows.to(cuda), clens.to(cuda), N)
+    want = decode_array.decode_batch(rows, clens, N)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    dict_ = corpus.silesia_like(N, seed=4)
+    ds = [native.compress(dict_[-3000:] + p[:2000], level=1, dict_=dict_)
+          for p in _payloads()[1:8]]
+    rows, clens = _rows(ds, C)
+    dbuf = torch.from_numpy(np.frombuffer(dict_, np.uint8).copy())
+    got = decode_array.decode_batch_dict(rows.to(cuda), clens.to(cuda),
+                                         dbuf.to(cuda), N, N)
+    want = decode_array.decode_batch_dict(rows, clens, dbuf, N, N)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool(want[2].all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", ["64KB", "4MB"])
+def test_array_path_frame_on_cuda_equals_cpu(cuda, block):
+    data = corpus.silesia_like(3 * N + 4321)
+    kw = dict(backend="device", level=1, array_path=True,
+              block_checksum=True)
+    if block == "64KB":
+        kw["block_size_idx"] = plz4_tpu_torch.BLOCK_IDX_64KB
+    before = _launch_counts()
+    frame = plz4_tpu_torch.compress(data, **kw)
+    assert plz4_tpu_torch.decompress(frame, **kw) == data
+    assert _launch_counts() == before  # no encode or decode kernel ran
+    assert frame == plz4_tpu_torch.compress(data, device="cpu", **kw)
+    assert plz4_tpu_torch.decompress(frame, backend="native") == data
+
+
+@pytest.mark.gpu
+def test_entry_array_on_cuda_equals_cpu(cuda):
+    from plz4_tpu_torch import entry
+
+    step, args = entry.entry_array()
+    assert args[0].device.type == "cuda"
+    got = step(*args)
+    cpu_step, cpu_args = entry.entry_array(device="cpu")
+    for g, w in zip(got, cpu_step(*cpu_args)):
+        assert torch.equal(g.cpu(), w)
+    assert bool(got[2])
+
+
+@pytest.mark.gpu
+def test_cli_device_backend_in_a_subprocess(cuda, tmp_path):
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    data = corpus.silesia_like(3 * N + 777)
+    src = tmp_path / "d.bin"
+    src.write_bytes(data)
+
+    def run(*argv):
+        p = subprocess.run([sys.executable, "-m", "plz4_tpu_torch", *argv],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=600)
+        assert p.returncode == 0, p.stderr[-2000:]
+        return p.stdout
+
+    for flags in ([], ["--bs", "64KB", "--bx"]):
+        run("--backend", "device", "compress", str(src), "-o",
+            str(tmp_path / "o.lz4"), "-f", "-q", *flags)
+        run("--backend", "device", "decompress", str(tmp_path / "o.lz4"),
+            "-o", str(tmp_path / "r.bin"), "-f", "-q")
+        assert (tmp_path / "r.bin").read_bytes() == data
+        assert "OK: " in run("--backend", "device", "verify",
+                             str(tmp_path / "o.lz4"))
+    assert "device" in run("bakeoff", str(src), "--device", "-q")

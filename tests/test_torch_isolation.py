@@ -42,7 +42,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "plz4_tpu_torch.parallel.large", "plz4_tpu_torch.api",
                 "plz4_tpu_torch.native", "plz4_tpu_torch.engine.writer",
                 "plz4_tpu_torch.parallel.mesh", "plz4_tpu_torch.parallel.dist",
-                "plz4_tpu_torch.entry"):
+                "plz4_tpu_torch.entry", "plz4_tpu_torch.cli",
+                "plz4_tpu_torch.__main__", "plz4_tpu_torch.sparse",
+                "plz4_tpu_torch.wpool", "plz4_tpu_torch.native.upstream",
+                "plz4_tpu_torch.ops.encode_array",
+                "plz4_tpu_torch.ops.decode_array"):
         assert mod in res["imported"]
 
 
