@@ -1,0 +1,9 @@
+"""frame_encode_roofline: the byte bound of the window's frame compress
+calls over the device time of the kernels launched inside them, in
+percent (readers.kernel_roofline)."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.kernel_roofline(run, "compress")
