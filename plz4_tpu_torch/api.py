@@ -23,6 +23,7 @@ from .engine.reader import FrameReader as Reader
 from .engine.writer import FrameWriter as Writer
 from .frame import header as _hdr
 from .opts import WINDOW_SIZE, clamp_level
+from .spans import span
 
 
 def write_skip_frame_header(dst, nibble: int, size: int) -> int:
@@ -41,15 +42,16 @@ def compress(data: bytes, **opts) -> bytes:
     from .engine import oneshot
     from .opts import Options
 
-    o = Options(**opts)
-    fast = oneshot.compress_bytes(data, o)
-    if fast is not None:
-        return fast
-    out = io.BytesIO()
-    w = Writer(out, o)
-    w.write(data)
-    w.close()
-    return out.getvalue()
+    with span("compress"):
+        o = Options(**opts)
+        fast = oneshot.compress_bytes(data, o)
+        if fast is not None:
+            return fast
+        out = io.BytesIO()
+        w = Writer(out, o)
+        w.write(data)
+        w.close()
+        return out.getvalue()
 
 
 def decompress(data: bytes, **opts) -> bytes:

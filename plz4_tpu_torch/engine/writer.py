@@ -28,6 +28,7 @@ from .. import errors as zerr
 from .. import native
 from ..frame import block_io, header as hdr, trailer
 from ..opts import WINDOW_SIZE, Options
+from ..spans import span
 
 
 class _HashWorker:
@@ -223,14 +224,16 @@ class FrameWriter:
             self._shutdown_pool()
             return
         try:
-            self._ensure_header()
-            self._flush_stage()
-            self._drain(wait_all=True)
-            if (self._o.content_size is not None
-                    and self._src_total != self._o.content_size):
-                raise zerr.ErrContentSize
-            content_hash = self._hasher.digest() if self._hasher else None
-            self._write_out(trailer.write_trailer(content_hash))
+            with span("writer.close"):
+                self._ensure_header()
+                self._flush_stage()
+                self._drain(wait_all=True)
+                if (self._o.content_size is not None
+                        and self._src_total != self._o.content_size):
+                    raise zerr.ErrContentSize
+                content_hash = (self._hasher.digest() if self._hasher
+                                else None)
+                self._write_out(trailer.write_trailer(content_hash))
         except BaseException as e:
             self._latch(e)
             raise
@@ -294,27 +297,28 @@ class FrameWriter:
             self._err = e
 
     def _write(self, data) -> int:
-        # cast to a bytes view: for non-uint8 buffers (e.g. an 'I'-typed
-        # array) len(mv) counts ELEMENTS while slices copy bytes, which
-        # would emit oversized blocks and miscount content_size
-        mv = memoryview(data).cast("B")
-        consumed = 0
-        bs = self._o.block_size
-        while consumed < len(mv):
-            if not self._stage and len(mv) - consumed >= bs:
-                # full block straight from the caller's buffer
-                # (reference: large-write no-copy path, sync/writer.go:96-107)
-                self._submit_block(bytes(mv[consumed:consumed + bs]))
-                consumed += bs
-            else:
-                take = min(bs - len(self._stage), len(mv) - consumed)
-                self._stage += mv[consumed:consumed + take]
-                consumed += take
-                if len(self._stage) == bs:
-                    self._submit_block(bytes(self._stage))
-                    self._stage.clear()
-        self._src_total += consumed
-        return consumed
+        with span("writer.write"):
+            # cast to a bytes view: for non-uint8 buffers (e.g. an 'I'-typed
+            # array) len(mv) counts ELEMENTS while slices copy bytes, which
+            # would emit oversized blocks and miscount content_size
+            mv = memoryview(data).cast("B")
+            consumed = 0
+            bs = self._o.block_size
+            while consumed < len(mv):
+                if not self._stage and len(mv) - consumed >= bs:
+                    # full block straight from the caller's buffer (reference:
+                    # large-write no-copy path, sync/writer.go:96-107)
+                    self._submit_block(bytes(mv[consumed:consumed + bs]))
+                    consumed += bs
+                else:
+                    take = min(bs - len(self._stage), len(mv) - consumed)
+                    self._stage += mv[consumed:consumed + take]
+                    consumed += take
+                    if len(self._stage) == bs:
+                        self._submit_block(bytes(self._stage))
+                        self._stage.clear()
+            self._src_total += consumed
+            return consumed
 
     def _ensure_header(self) -> None:
         if self._header_written:
@@ -440,15 +444,16 @@ class FrameWriter:
             self._drain_device_one()
 
     def _drain_device_one(self) -> None:
-        pending, blocks = self._device_pending.popleft()
-        results = pending.result()
-        if self._o.block_checksum:
-            # block hashes were computed on device alongside the encode
-            for src, (stored, raw, csum) in zip(blocks, results):
-                self._emit(stored, raw, len(src), checksum=csum)
-        else:
-            for src, (stored, raw) in zip(blocks, results):
-                self._emit(stored, raw, len(src))
+        with span("writer.drain"):
+            pending, blocks = self._device_pending.popleft()
+            results = pending.result()
+            if self._o.block_checksum:
+                # block hashes were computed on device alongside the encode
+                for src, (stored, raw, csum) in zip(blocks, results):
+                    self._emit(stored, raw, len(src), checksum=csum)
+            else:
+                for src, (stored, raw) in zip(blocks, results):
+                    self._emit(stored, raw, len(src))
 
     def _drain_one(self) -> None:
         fut, src_lens = self._pending.popleft()

@@ -63,6 +63,7 @@ from ..ops import encode_array as enc_arr
 from ..ops import encode_deep as deep_ops
 from ..ops import encode_mid as mid_ops
 from ..ops import xxh32 as xxh_ops
+from ..spans import span
 from . import mesh as mesh_mod
 
 EMPTY_BLOCK = b"\x00"  # 1-byte literals-only token: decodes to b""
@@ -179,16 +180,19 @@ class Pending:
 
     def result(self):
         if not self._done:
-            try:
-                self.failed_step = -1
-                self._wait()
-                for k, step in enumerate(self.steps):
-                    self.failed_step = k
-                    out = step()
-                self.failed_step = None
-                self._result = out
-            finally:
-                self._release()
+            with span("batch.result"):
+                try:
+                    self.failed_step = -1
+                    with span("batch.wait"):
+                        self._wait()
+                    with span("batch.assemble"):
+                        for k, step in enumerate(self.steps):
+                            self.failed_step = k
+                            out = step()
+                    self.failed_step = None
+                    self._result = out
+                finally:
+                    self._release()
         return self._result
 
     def discard(self):
@@ -310,16 +314,18 @@ def _dispatch(kernel, host_args, dev: torch.device, extra=()):
     the host and the CUDA event that marks them ready (None on the CPU,
     where the plain version runs synchronously). On CUDA the outputs come
     back by asynchronous copies into pinned pool tensors."""
-    if dev.type == "cpu":
-        return kernel(*host_args, *extra), None
-    args = [a.to(dev, non_blocking=True) for a in host_args]
-    outs = kernel(*args, *extra)
-    host = [_pool.take(o.shape, o.dtype, True) for o in outs]
-    for h, o in zip(host, outs):
-        h.copy_(o, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(dev))
-    return host, event
+    with span("batch.enqueue", d2h_bytes=0) as sp:
+        if dev.type == "cpu":
+            return kernel(*host_args, *extra), None
+        args = [a.to(dev, non_blocking=True) for a in host_args]
+        outs = kernel(*args, *extra)
+        host = [_pool.take(o.shape, o.dtype, True) for o in outs]
+        for h, o in zip(host, outs):
+            h.copy_(o, non_blocking=True)
+        sp.add(d2h_bytes=sum(h.nbytes for h in host))
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+        return host, event
 
 
 def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
@@ -337,93 +343,98 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
     (dispatch_encode), or array_path=True A1; with_checksums=True appends
     each stored block's xxh32, hashed on the device (zero host hashing).
     """
-    if not blocks:
-        return Pending(list, ())
-    # validate BEFORE taking pool buffers: a raise here must not leak them
-    for blk in blocks:
-        if len(blk) > block_size:
-            raise zerr.ErrSrcSize
-    mesh = _mesh_of(device)
-    if mesh is not None:
-        return _sharded(mesh, len(blocks), lambda lo, hi, dev: (
-            encode_blocks_begin(
-                blocks[lo:hi], block_size, level=level,
-                dicts=dicts[lo:hi] if dicts is not None else None,
-                with_checksums=with_checksums, device=dev,
-                array_path=array_path)))
-    if block_size > MAX_BLOCK:
-        from . import large
+    with span("batch.begin"):
+        if not blocks:
+            return Pending(list, ())
+        # validate BEFORE taking pool buffers: a raise here must not leak them
+        for blk in blocks:
+            if len(blk) > block_size:
+                raise zerr.ErrSrcSize
+        mesh = _mesh_of(device)
+        if mesh is not None:
+            return _sharded(mesh, len(blocks), lambda lo, hi, dev: (
+                encode_blocks_begin(
+                    blocks[lo:hi], block_size, level=level,
+                    dicts=dicts[lo:hi] if dicts is not None else None,
+                    with_checksums=with_checksums, device=dev,
+                    array_path=array_path)))
+        if block_size > MAX_BLOCK:
+            from . import large
 
-        if any(len(b) > large.CHUNK for b in blocks):
-            # 256 KiB-4 MiB blocks: encode as window-prefixed 64 KiB
-            # chunks in parallel, stitch into standard LZ4 blocks
-            return large.encode_large_begin(
-                blocks, block_size, level=level, dicts=dicts,
-                with_checksums=with_checksums, device=device,
-                array_path=array_path)
-        block_size = large.CHUNK  # all blocks fit one chunk row
-    dev = resolve_device(device)
-    pinned = dev.type == "cuda"
-    B = _pow2(len(blocks))
-    N = block_size
-    arr = _pool.take((B, N), torch.uint8, pinned)
-    lens = _pool.take((B,), torch.int32, pinned)
-    a, ln = arr.numpy(), lens.numpy()
-    ln.fill(0)
-    for i, blk in enumerate(blocks):
-        a[i, : len(blk)] = np.frombuffer(blk, dtype=np.uint8)
-        a[i, len(blk):] = 0
-        ln[i] = len(blk)
-    a[len(blocks):] = 0
-    staging = [arr, lens]
-    if dicts is not None and any(d for d in dicts):
-        # right-aligned (B, 64 KiB) windows, each row's usable length in
-        # wlens; every window position seeds the tables (wstride 1)
-        darr = _pool.take((B, WINDOW), torch.uint8, pinned)
-        dlens = _pool.take((B,), torch.int32, pinned)
-        da, dl = darr.numpy(), dlens.numpy()
-        da.fill(0)
-        dl.fill(0)
-        for i, d in enumerate(dicts):
-            if d:
-                d = d[-WINDOW:]
-                da[i, WINDOW - len(d):] = np.frombuffer(d, dtype=np.uint8)
-                dl[i] = len(d)
-        staging += [darr, dlens]
-        kernel = (dispatch_encode_dict_array if array_path
-                  else dispatch_encode_dict)
-        args = (arr, lens, darr, dlens)
-    else:
-        kernel = enc_arr.encode_batch if array_path else dispatch_encode
-        args = (arr, lens)
-    if with_checksums:
-        kernel = _encode_hashed(kernel)
-    outs_h, event = _dispatch(kernel, args, dev, extra=(level,))
-    out, totals, compressible = outs_h[:3]
-
-    def assemble():
-        outs = out.numpy()
-        tot = totals.numpy()
-        comp = compressible.numpy()
+            if any(len(b) > large.CHUNK for b in blocks):
+                # 256 KiB-4 MiB blocks: encode as window-prefixed 64 KiB
+                # chunks in parallel, stitch into standard LZ4 blocks
+                return large.encode_large_begin(
+                    blocks, block_size, level=level, dicts=dicts,
+                    with_checksums=with_checksums, device=device,
+                    array_path=array_path)
+            block_size = large.CHUNK  # all blocks fit one chunk row
+        dev = resolve_device(device)
+        pinned = dev.type == "cuda"
+        B = _pow2(len(blocks))
+        N = block_size
+        windowed = dicts is not None and any(d for d in dicts)
+        with span("batch.stage"):
+            arr = _pool.take((B, N), torch.uint8, pinned)
+            lens = _pool.take((B,), torch.int32, pinned)
+            a, ln = arr.numpy(), lens.numpy()
+            ln.fill(0)
+            for i, blk in enumerate(blocks):
+                a[i, : len(blk)] = np.frombuffer(blk, dtype=np.uint8)
+                a[i, len(blk):] = 0
+                ln[i] = len(blk)
+            a[len(blocks):] = 0
+            staging = [arr, lens]
+            if windowed:
+                # right-aligned (B, 64 KiB) windows, each row's usable length
+                # in wlens; every window position seeds the tables (wstride 1)
+                darr = _pool.take((B, WINDOW), torch.uint8, pinned)
+                dlens = _pool.take((B,), torch.int32, pinned)
+                da, dl = darr.numpy(), dlens.numpy()
+                da.fill(0)
+                dl.fill(0)
+                for i, d in enumerate(dicts):
+                    if d:
+                        d = d[-WINDOW:]
+                        da[i, WINDOW - len(d):] = np.frombuffer(
+                            d, dtype=np.uint8)
+                        dl[i] = len(d)
+                staging += [darr, dlens]
+        if windowed:
+            kernel = (dispatch_encode_dict_array if array_path
+                      else dispatch_encode_dict)
+            args = (arr, lens, darr, dlens)
+        else:
+            kernel = enc_arr.encode_batch if array_path else dispatch_encode
+            args = (arr, lens)
         if with_checksums:
-            comp_hash, raw_hash = outs_h[3].numpy(), outs_h[4].numpy()
-        results = []
-        for i, blk in enumerate(blocks):
-            if len(blk) == 0:
-                stored, raw = b"", True
-            elif bool(comp[i]) and int(tot[i]) < len(blk):
-                stored, raw = outs[i, : int(tot[i])].tobytes(), False
-            else:
-                stored, raw = blk, True
-            if not with_checksums:
-                results.append((stored, raw))
-                continue
-            csum = (EMPTY_HASH if not blk else
-                    int(raw_hash[i]) if raw else int(comp_hash[i]))
-            results.append((stored, raw, csum))
-        return results
+            kernel = _encode_hashed(kernel)
+        outs_h, event = _dispatch(kernel, args, dev, extra=(level,))
+        out, totals, compressible = outs_h[:3]
 
-    return Pending(assemble, staging + list(outs_h), event=event)
+        def assemble():
+            outs = out.numpy()
+            tot = totals.numpy()
+            comp = compressible.numpy()
+            if with_checksums:
+                comp_hash, raw_hash = outs_h[3].numpy(), outs_h[4].numpy()
+            results = []
+            for i, blk in enumerate(blocks):
+                if len(blk) == 0:
+                    stored, raw = b"", True
+                elif bool(comp[i]) and int(tot[i]) < len(blk):
+                    stored, raw = outs[i, : int(tot[i])].tobytes(), False
+                else:
+                    stored, raw = blk, True
+                if not with_checksums:
+                    results.append((stored, raw))
+                    continue
+                csum = (EMPTY_HASH if not blk else
+                        int(raw_hash[i]) if raw else int(comp_hash[i]))
+                results.append((stored, raw, csum))
+            return results
+
+        return Pending(assemble, staging + list(outs_h), event=event)
 
 
 def decode_blocks_begin(stored: list[tuple[bytes, bool]], block_size: int,

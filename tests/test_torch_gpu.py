@@ -861,3 +861,27 @@ def test_cli_device_backend_in_a_subprocess(cuda, tmp_path):
         assert "OK: " in run("--backend", "device", "verify",
                              str(tmp_path / "o.lz4"))
     assert "device" in run("bakeoff", str(src), "--device", "-q")
+
+
+@pytest.mark.gpu
+def test_spans_count_the_rows_copied_back(cuda):
+    """Three batches (128, 128 and 35 blocks, the last padded to 64 rows):
+    each row comes back at its output width, with its total and flag."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from plz4_tpu_torch import spans
+
+    rng = np.random.default_rng(31)
+    data = np.repeat(rng.integers(0, 16, (291 * N - 999) // 4,
+                                  dtype=np.uint8), 4).tobytes()
+    kw = dict(backend="device", device="cuda", level=12,
+              block_size_idx=plz4_tpu_torch.BLOCK_IDX_64KB)
+    frame = plz4_tpu_torch.compress(data, **kw)  # untraced warm call
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        assert plz4_tpu_torch.compress(data, **kw) == frame
+    t = spans.totals()
+    assert t["plz4.batch.enqueue"]["n"] == 3
+    rows = 128 + 128 + 64
+    assert t["plz4.batch.enqueue"]["d2h_bytes"] == rows * (
+        encode.out_width(N) + 4 + 1)
+    assert plz4_tpu_torch.decompress(frame) == data
