@@ -36,9 +36,26 @@
 // takes the rest of the row); warp 0 parses with its 32 lanes together,
 // looking walks up in the table. Shared memory: 2^16 x 2 B ring (131,072 B,
 // the 2^15 x 4 B or 2^14 x 4 B head table during the build) + the row:
-// 131,072 + 65,544 = 196,616 B for a plain 64 KiB row, 131,072 + 98,312 =
+// 131,072 + 65,544 = 196,616 B for a 64 KiB row, 131,072 + 98,312 =
 // 229,384 B for a 64 KiB block after a 32 KiB window, at most 232,448 B on
 // every route.
+//
+// Plain rows (no window, at most 65,536 bytes: the ring then holds every
+// link of the row) take lz4t_encode_deep_plain_kernel, which keeps the
+// walk table out of device memory and off the serial path: after the same
+// staging, build and ring load, warp 0 parses while the block's other
+// LZ4T_DEEP_PIPE_WARPS warps fill the table into a ring of
+// LZ4T_DEEP_PIPE_SLOTS chunks of LZ4T_DEEP_PIPE_CHUNK entries in shared
+// memory (lz4t_pipe_fill), chunk by chunk in position order, handing each
+// over with mbarriers; the parse waits for a chunk before it reads it and
+// hands it back once its scan has passed it (lz4t_pipe_tab). So a row
+// takes the build and then the longer of the table and the parse, not
+// their sum, and the parse reads its entries from shared memory. Shared
+// memory: 131,072 (ring) + 32,896 (table ring and barriers) + 65,544 (the
+// row) = 229,512 B for a 64 KiB row. 19 table warps (640 threads) gave the
+// shortest launches over the frame cell's rows at walk budgets 2 and 32
+// among 11-23 (tools/encode_deep_stamps_torch.py, PERF.md): fewer leave
+// the parse waiting for chunks on rows of long chains, more slow it.
 #include <cuda_runtime.h>
 
 #include "lz4_encode_deep.cuh"
@@ -46,6 +63,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kPlainThreads = 32 * (1 + LZ4T_DEEP_PIPE_WARPS);
 
 __global__ void __launch_bounds__(kThreads)
     lz4t_encode_deep_kernel(const uint8_t* __restrict__ data,
@@ -94,12 +112,95 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (t < 32) {
     int total, okv;
+    lz4t_dev_tab tab = {tr, Dc};
     lz4t_encode_deep_row(c, Dc, first, n, out + (size_t)r * CAP, CAP, tries,
-                         rg, tr, &total, &okv);
+                         rg, tab, &total, &okv);
     if (t == 0) {
       totals[r] = total;
       ok[r] = okv != 0;
     }
+  }
+}
+
+// The plain kernel's shared memory: the ring (the build's head table
+// before it), the table ring, its barriers, then the row.
+struct lz4t_plain_smem {
+  uint32_t* head;
+  uint16_t* ring;
+  uint32_t* slot;
+  uint64_t* full;
+  uint64_t* empty;
+  uint32_t* roww;
+};
+
+__device__ __forceinline__ lz4t_plain_smem lz4t_plain_layout() {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* slot = smem + LZ4T_DEEP_RING / 2;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      slot + LZ4T_DEEP_PIPE_SLOTS * LZ4T_DEEP_PIPE_CHUNK);
+  uint64_t* empty = full + LZ4T_DEEP_PIPE_SLOTS;
+  return {smem, reinterpret_cast<uint16_t*>(smem), slot, full, empty,
+          reinterpret_cast<uint32_t*>(empty + LZ4T_DEEP_PIPE_SLOTS)};
+}
+
+// The parse warp's and the table warps' parts of a plain row are functions
+// of their own, each compiled apart from the other: inlined into the
+// kernel together they ran 13-22% slower (ptxas's one allocation for
+// both; tools/encode_deep_stamps_torch.py, PERF.md). Both take the chain
+// from the ring alone (the row has at most LZ4T_DEEP_RING positions).
+__device__ __noinline__ void lz4t_plain_parse(int n, uint8_t* o, int CAP,
+                                              int tries, int* total,
+                                              int* okv) {
+  const lz4t_plain_smem m = lz4t_plain_layout();
+  const lz4t_ring rg = {m.ring, nullptr, LZ4T_DEEP_RING};
+  lz4t_pipe_tab<lz4t_pipe_bars> tab = {
+      m.slot, 0, lz4t_pipe_chunks(0, n - 12), {m.full, m.empty}, 0, 0, 0, 0};
+  lz4t_encode_deep_row(reinterpret_cast<const uint8_t*>(m.roww), 0, 0, n, o,
+                       CAP, tries, rg, tab, total, okv);
+}
+
+__device__ __noinline__ void lz4t_plain_fill(int n, int tries, int w) {
+  const lz4t_plain_smem m = lz4t_plain_layout();
+  const lz4t_ring rg = {m.ring, nullptr, LZ4T_DEEP_RING};
+  lz4t_pipe_fill<LZ4T_DEEP_PIPE_WARPS>(
+      reinterpret_cast<const uint8_t*>(m.roww), 0, n - 12, 0, n - 5, tries,
+      rg, m.slot, m.full, m.empty, w);
+}
+
+// A plain row (D = Dc = 0, N <= LZ4T_DEEP_RING).
+__global__ void __launch_bounds__(kPlainThreads, 1)
+    lz4t_encode_deep_plain_kernel(const uint8_t* __restrict__ data,
+                                  const int32_t* __restrict__ lens,
+                                  uint8_t* __restrict__ out,
+                                  int32_t* __restrict__ totals,
+                                  bool* __restrict__ ok, uint16_t* delta,
+                                  int N, int CAP, int tries, int hash_log) {
+  const lz4t_plain_smem m = lz4t_plain_layout();
+  const int r = blockIdx.x;
+  const int t = threadIdx.x;
+  const int DT = N + 8;
+  uint16_t* dr = delta + (size_t)r * DT;
+  for (int i = t; i < (1 << hash_log); i += kPlainThreads) m.head[i] = 0;
+  lz4t_stage_row(m.roww, data, nullptr, r, N, 0, 1, 0);
+  lz4t_pipe_init<LZ4T_DEEP_PIPE_WARPS>(m.full, m.empty);
+  __syncthreads();
+  const int n = lens[r];
+  if (t < 32)
+    lz4t_deep_build(reinterpret_cast<const uint8_t*>(m.roww), 0, n - 12,
+                    hash_log, m.head, dr);
+  __syncthreads();
+  for (int i = t; i < lz4t_min(LZ4T_DEEP_RING, DT); i += kPlainThreads)
+    m.ring[i] = dr[i];
+  __syncthreads();
+  if (t < 32) {
+    int total, okv;
+    lz4t_plain_parse(n, out + (size_t)r * CAP, CAP, tries, &total, &okv);
+    if (t == 0) {
+      totals[r] = total;
+      ok[r] = okv != 0;
+    }
+  } else {
+    lz4t_plain_fill(n, tries, (t >> 5) - 1);
   }
 }
 
@@ -125,6 +226,26 @@ extern "C" int lz4t_launch(const void* data, const void* lens, const void* win,
       (const uint8_t*)data, (const int32_t*)lens, (const uint8_t*)win,
       (const int32_t*)wlens, (uint8_t*)out, (int32_t*)totals, (bool*)ok,
       (uint16_t*)delta, (uint32_t*)tab, N, D, K, Dc, CAP, tries, hash_log);
+  return cudaGetLastError();
+}
+
+// Plain rows: data (R, N) u8, lens (R,) i32, delta (R, N + 8) u16 scratch
+// -> out (R, CAP) u8, totals (R,) i32, ok (R,) bool. N % 4 == 0, N <=
+// LZ4T_DEEP_RING. Returns a cudaError_t.
+extern "C" int lz4t_launch_plain(const void* data, const void* lens,
+                                 void* out, void* totals, void* ok,
+                                 void* delta, int R, int N, int CAP,
+                                 int tries, int hash_log, void* stream) {
+  const int smem = LZ4T_DEEP_RING * 2 + LZ4T_DEEP_PIPE_SMEM + N + 8;
+  cudaError_t e = cudaFuncSetAttribute(
+      lz4t_encode_deep_plain_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  lz4t_encode_deep_plain_kernel<<<R, kPlainThreads, smem,
+                                  (cudaStream_t)stream>>>(
+      (const uint8_t*)data, (const int32_t*)lens, (uint8_t*)out,
+      (int32_t*)totals, (bool*)ok, (uint16_t*)delta, N, CAP, tries,
+      hash_log);
   return cudaGetLastError();
 }
 

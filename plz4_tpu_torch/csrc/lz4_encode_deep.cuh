@@ -74,6 +74,21 @@
 // as the serial loops: the scan's 32 entries, the literals of a sequence
 // (32 bytes per step), and a full walk's extension (32 byte pairs per
 // step, the first mismatch or matchlimit by __ballot_sync: the same l).
+//
+// The parse reads the table through an accessor (Tab): the whole table in
+// device memory (lz4t_dev_tab, rows after a window), or a ring of table
+// chunks in shared memory that other warps fill while the parse runs
+// (lz4t_pipe_tab, plain rows). Positions [base, mflimit] form chunks of
+// LZ4T_DEEP_PIPE_CHUNK entries, chunk k in slot k % LZ4T_DEEP_PIPE_SLOTS.
+// The parse reads entries only at positions at or above ip and in the scan
+// at or above sip, both of which only grow, and at most 32 + 64 positions
+// past them (a scan step, then the lazy moves, each one position and one
+// byte of match length below the cap): so before it reads an entry it
+// waits for that entry's chunk (wait), and it hands back every chunk that
+// lies wholly below sip (release), in order, having waited for each; at
+// its end it hands back the rest (finish). A table chunk is a pure
+// function of the row and the chain, so where and in what order the
+// entries are computed changes no byte of the output.
 #pragma once
 
 #include "lz4_encode.cuh"
@@ -83,6 +98,16 @@
 #define LZ4T_DEEP_MIN_MATCH 4
 #define LZ4T_DEEP_RING 65536  // chain ring slots, u16 deltas
 #define LZ4T_DEEP_LCAP 64     // walk-table lengths are capped here
+// the table ring of plain rows: slots (a power of 2) of table chunks (a
+// power of 2 of u32 entries, a multiple of 32), and the table warps that
+// fill them beside the parse warp
+#define LZ4T_DEEP_PIPE_SLOTS 8
+#define LZ4T_DEEP_PIPE_CHUNK 1024
+#define LZ4T_DEEP_PIPE_WARPS 19
+// shared memory of the ring: the entries, a full and an empty mbarrier
+// per slot
+#define LZ4T_DEEP_PIPE_SMEM \
+  (LZ4T_DEEP_PIPE_SLOTS * (LZ4T_DEEP_PIPE_CHUNK * 4 + 16))
 
 // Build key of the lane at position p: its hash, or a key no other lane
 // has past the last position.
@@ -234,6 +259,71 @@ LZ4T_HD void lz4t_walk_table(const uint8_t* c, int base, int from, int to,
     tab[p - base] = lz4t_walk_entry(c, p, first, matchlimit, tries, r);
 }
 
+// The parse's view of a walk table in device memory that is whole before
+// the parse starts: entry p at tab[p - base].
+struct lz4t_dev_tab {
+  const uint32_t* tab;
+  int base;
+  LZ4T_HDM uint32_t operator[](int p) const { return tab[p - base]; }
+  LZ4T_HDM void wait(int) {}
+  LZ4T_HDM void release(int) {}
+  LZ4T_HDM void finish() {}
+};
+
+// the number of table chunks of positions [base, mflimit]
+LZ4T_HD int lz4t_pipe_chunks(int base, int mflimit) {
+  return mflimit >= base ? (mflimit - base) / LZ4T_DEEP_PIPE_CHUNK + 1 : 0;
+}
+
+// The parse's view of the table ring (see the file comment): entry p in
+// slot[(p - base) % (slots x chunk)]. Sync hands the chunks over:
+// sync.wait_full(k) returns once chunk k is written, sync.hand_back(k)
+// hands chunk k back to the table warps (after its wait_full). The card's
+// Sync is lz4t_pipe_bars; the host build's fills the chunks on demand and
+// poisons the chunks handed back (lz4_host.cpp).
+template <class Sync>
+struct lz4t_pipe_tab {
+  const uint32_t* slot;
+  int base;
+  int nchunks;
+  Sync sync;
+  int waited;  // chunks [0, waited) have been written
+  int freed;   // chunks [0, freed) have been handed back
+  // the scan's fast path, one compare each: entries below ready can be
+  // read, and a scan at or past edge hands a chunk back (0 to start with,
+  // which only sends the first calls the slow way)
+  int ready;
+  int edge;
+  LZ4T_HDM uint32_t operator[](int p) const {
+    return slot[(p - base) &
+                (LZ4T_DEEP_PIPE_SLOTS * LZ4T_DEEP_PIPE_CHUNK - 1)];
+  }
+  LZ4T_HDM void wait_chunks(int k) {
+    for (; waited < k; waited++) sync.wait_full(waited);
+    ready = base + waited * LZ4T_DEEP_PIPE_CHUNK;
+  }
+  // the entry of q (base <= q <= mflimit) can be read
+  LZ4T_HDM void wait(int q) {
+    if (q >= ready) wait_chunks((q - base) / LZ4T_DEEP_PIPE_CHUNK + 1);
+  }
+  // chunks [freed, k) go back one by one, each once it is written: the
+  // table warps may need the first of them to write the last
+  LZ4T_HDM void release_chunks(int k) {
+    for (; freed < k; freed++) {
+      wait_chunks(freed + 1);
+      sync.hand_back(freed);
+    }
+    edge = base + (freed + 1) * LZ4T_DEEP_PIPE_CHUNK;
+  }
+  // no entry below p (p >= base) is read again
+  LZ4T_HDM void release(int p) {
+    if (p >= edge)
+      release_chunks(lz4t_min((p - base) / LZ4T_DEEP_PIPE_CHUNK, nchunks));
+  }
+  // the parse has ended: every chunk goes back
+  LZ4T_HDM void finish() { release_chunks(nchunks); }
+};
+
 // lz4t_emit_sequence with the literals copied 32 bytes per step
 LZ4T_HD int lz4t_emit_sequence_lanes(const uint8_t* c, uint8_t* o, int OT,
                                      int op, int anchor, int ip, int mpos,
@@ -264,11 +354,12 @@ LZ4T_HD int lz4t_emit_sequence_lanes(const uint8_t* c, uint8_t* o, int OT,
 
 // c: the row, base + N + 8 bytes (n block bytes at base, zero after the
 // block's N); o: OT = CAP output bytes; r: the row's chain; tab: the walk
-// table, tab[p - base] for p in [base, base + n - 12]. Run by all 32 lanes
-// of a warp together.
+// table's accessor, tab[p] for p in [base, base + n - 12], every chunk of
+// it handed back on return. Run by all 32 lanes of a warp together.
+template <class Tab>
 LZ4T_HD void lz4t_encode_deep_row(const uint8_t* c, int base, int first,
                                   int n, uint8_t* o, int OT, int tries,
-                                  const lz4t_ring& r, const uint32_t* tab,
+                                  const lz4t_ring& r, Tab& tab,
                                   int* total_out, int* ok_out) {
   const int end = base + n;
   const int mflimit = end - 12;
@@ -281,8 +372,10 @@ LZ4T_HD void lz4t_encode_deep_row(const uint8_t* c, int base, int first,
     int sip = ip;
     uint32_t hit = 0;
     while (sip <= mflimit) {
+      tab.release(sip);
+      tab.wait(lz4t_min(sip + LZ4T_LANES - 1, mflimit));
       hit = lz4t_ballot([&](int i) {
-        return sip + i <= mflimit && tab[sip + i - base] != 0;
+        return sip + i <= mflimit && tab[sip + i] != 0;
       });
       if (hit) break;
       sip += LZ4T_LANES;
@@ -292,13 +385,14 @@ LZ4T_HD void lz4t_encode_deep_row(const uint8_t* c, int base, int first,
       continue;
     }
     int mip = sip + lz4t_ffs(hit), mpos;
-    int mlen = lz4t_deep_take(c, mip, tab[mip - base],
+    int mlen = lz4t_deep_take(c, mip, tab[mip],
                               LZ4T_DEEP_MIN_MATCH - 1, first, matchlimit,
                               tries, r, &mpos);
     // lazy: absorb a byte into the literals while the next position holds
     // a strictly longer match
     while (mip + 1 <= mflimit && mlen < LZ4T_DEEP_LAZY_CAP) {
-      const uint32_t e = tab[mip + 1 - base];
+      tab.wait(mip + 1);
+      const uint32_t e = tab[mip + 1];
       if ((int)(e >> 16) <= mlen) break;
       mip++;
       mlen = lz4t_deep_take(c, mip, e, mlen, first, matchlimit, tries, r,
@@ -322,6 +416,76 @@ LZ4T_HD void lz4t_encode_deep_row(const uint8_t* c, int base, int first,
     op = OT;
   else
     op = lz4t_emit_sequence_lanes(c, o, OT, op, anchor, end, 0, 0);
+  tab.finish();
   *total_out = op;
   *ok_out = (op < n) && !overflow;
 }
+
+#if defined(__CUDACC__)
+
+// The card's hand-over of the table ring: per slot a full mbarrier (one
+// arrival per table warp once it has written its entries of the chunk) and
+// an empty one (the parse's lane 0 arrives once the parse is done with
+// the chunk). Every lane of the parse warp waits.
+struct lz4t_pipe_bars {
+  uint64_t* full;
+  uint64_t* empty;
+  __host__ __device__ void wait_full(int k) {
+#if defined(__CUDA_ARCH__)
+    lz4t_mbar_wait(&full[k & (LZ4T_DEEP_PIPE_SLOTS - 1)],
+                   (k / LZ4T_DEEP_PIPE_SLOTS) & 1);
+#endif
+  }
+  __host__ __device__ void hand_back(int k) {
+#if defined(__CUDA_ARCH__)
+    __syncwarp();  // every lane's reads of the chunk come first
+    if (lz4t_lead())
+      lz4t_mbar_arrive(&empty[k & (LZ4T_DEEP_PIPE_SLOTS - 1)]);
+#endif
+  }
+};
+
+// The ring's barriers, set up by thread 0 before the block syncs: full
+// counts the kWarps table warps, empty the parse.
+template <int kWarps>
+__device__ __forceinline__ void lz4t_pipe_init(uint64_t* full,
+                                               uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < LZ4T_DEEP_PIPE_SLOTS; s++) {
+      lz4t_mbar_init(&full[s], kWarps);
+      lz4t_mbar_init(&empty[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+}
+
+// Table warp w of kWarps: the walk-table entries of positions [base,
+// mflimit] into the ring, chunk by chunk. Steps of 32 positions go to the
+// warps in turn across chunk edges (step g, positions base + 32 g .. + 31,
+// to warp g % kWarps), so every warp takes the same share of each row. A
+// warp waits for a slot's previous chunk to be handed back before it
+// writes there, and arrives on the slot's full barrier once its entries
+// of the chunk are written.
+template <int kWarps>
+__device__ __forceinline__ void lz4t_pipe_fill(
+    const uint8_t* c, int base, int mflimit, int first, int matchlimit,
+    int tries, const lz4t_ring& r, uint32_t* slot, uint64_t* full,
+    uint64_t* empty, int w) {
+  constexpr int S = LZ4T_DEEP_PIPE_SLOTS, E = LZ4T_DEEP_PIPE_CHUNK;
+  const int lane = threadIdx.x & 31;
+  const int nchunks = lz4t_pipe_chunks(base, mflimit);
+  int g = w;
+  for (int k = 0; k < nchunks; k++) {
+    if (k >= S) lz4t_mbar_wait(&empty[k & (S - 1)], (k / S - 1) & 1);
+    for (; g < (k + 1) * (E / 32); g += kWarps) {
+      const int p = base + 32 * g + lane;
+      if (p <= mflimit)
+        slot[(p - base) & (S * E - 1)] =
+            lz4t_walk_entry(c, p, first, matchlimit, tries, r);
+    }
+    __syncwarp();
+    if (lz4t_lead()) lz4t_mbar_arrive(&full[k & (S - 1)]);
+  }
+}
+
+#endif  // __CUDACC__

@@ -223,11 +223,89 @@ extern "C" void lz4t_host_encode_deep(const uint8_t* data,
                       matchlimit, tries, rg, tab.data(), 0, 1);
     }
     int total, okv;
+    lz4t_dev_tab dt = {tab.data(), Dc};
     lz4t_encode_deep_row(row.data(), Dc, first, lens[r],
-                         out + (size_t)r * CAP, CAP, tries, rg, tab.data(),
-                         &total, &okv);
+                         out + (size_t)r * CAP, CAP, tries, rg, dt, &total,
+                         &okv);
     totals[r] = total;
     ok[r] = okv != 0;
+  }
+}
+
+// K4's table ring of plain rows (lz4t_pipe_tab) on the host: where the
+// card's parse waits for chunk k, the table fills the chunks up to k in
+// order (a chunk, then the parse reads what is ready), each only once the
+// chunk before it in its slot has been handed back, as the card's table
+// warps wait for it; a chunk the parse hands back is poisoned at once, as
+// are the slots before their first chunk, so a parse that reads an entry
+// it has not waited for, or one it has handed back, reads a 63-byte match
+// at offset 1 and fails the tests. A chunk needed while its slot is still
+// held, or a parse that ends holding chunks, would hang the card: the row
+// then reports total -1.
+struct host_pipe_sync {
+  static constexpr uint32_t kPoison = 63u << 16 | 1u;
+  const uint8_t* c;
+  int base, mflimit, first, matchlimit, tries;
+  const lz4t_ring* rg;
+  uint32_t* slot;
+  int made, freed;
+  bool* stuck;
+  void fill() {
+    constexpr int S = LZ4T_DEEP_PIPE_SLOTS, E = LZ4T_DEEP_PIPE_CHUNK;
+    if (made - freed >= S) *stuck = true;
+    const int p0 = base + made * E;
+    for (int p = p0; p < p0 + E && p <= mflimit; p++)
+      slot[(p - base) & (S * E - 1)] =
+          lz4t_walk_entry(c, p, first, matchlimit, tries, *rg);
+    made++;
+  }
+  void wait_full(int k) {
+    while (made <= k) fill();
+  }
+  void hand_back(int k) {
+    constexpr int S = LZ4T_DEEP_PIPE_SLOTS, E = LZ4T_DEEP_PIPE_CHUNK;
+    for (int i = 0; i < E; i++) slot[(k & (S - 1)) * E + i] = kPoison;
+    freed = k + 1;
+  }
+};
+
+// K4 on plain rows: lz4_encode_deep.cu's lz4t_encode_deep_plain_kernel,
+// the parse reading the table through the ring as it is filled.
+extern "C" void lz4t_host_encode_deep_plain(const uint8_t* data,
+                                            const int32_t* lens,
+                                            uint8_t* out, int32_t* totals,
+                                            uint8_t* ok, int R, int N,
+                                            int CAP, int tries,
+                                            int hash_log) {
+  const int DT = N + 8;
+  std::vector<uint32_t> head(1 << hash_log);
+  std::vector<uint32_t> slot(LZ4T_DEEP_PIPE_SLOTS * LZ4T_DEEP_PIPE_CHUNK);
+  std::vector<uint16_t> ring(LZ4T_DEEP_RING), delta(DT);
+  std::vector<uint8_t> row;
+  for (int r = 0; r < R; r++) {
+    deep_chain_row(row, head, delta.data(), data, lens, nullptr, nullptr, r,
+                   N, 0, 1, 0, hash_log);
+    const int mflimit = lens[r] - 12, matchlimit = lens[r] - 5;
+    for (int q = 0; q < LZ4T_DEEP_RING && q < DT; q++) ring[q] = delta[q];
+    const lz4t_ring rg = {ring.data(), delta.data(), LZ4T_DEEP_RING};
+    for (uint32_t& e : slot) e = host_pipe_sync::kPoison;
+    bool stuck = false;
+    lz4t_pipe_tab<host_pipe_sync> tab = {
+        slot.data(),
+        0,
+        lz4t_pipe_chunks(0, mflimit),
+        {row.data(), 0, mflimit, 0, matchlimit, tries, &rg, slot.data(), 0,
+         0, &stuck},
+        0,
+        0,
+        0,
+        0};
+    int total, okv;
+    lz4t_encode_deep_row(row.data(), 0, 0, lens[r], out + (size_t)r * CAP,
+                         CAP, tries, rg, tab, &total, &okv);
+    stuck |= tab.freed != tab.nchunks;  // the card's table warps need all
+    totals[r] = stuck ? -1 : total;
+    ok[r] = okv != 0 && !stuck;
   }
 }
 

@@ -30,7 +30,8 @@ KERNELS = {
     "lz4_decode": {"lz4t_launch": (5, 3)},            # K1
     "lz4_encode_window": {"lz4t_launch": (8, 6)},     # K2b
     "lz4_encode_mid": {"lz4t_launch": (9, 7)},        # K2c, K2d
-    "lz4_encode_deep": {"lz4t_launch": (9, 8)},       # K4
+    "lz4_encode_deep": {"lz4t_launch": (9, 8),        # K4
+                        "lz4t_launch_plain": (6, 5)},
     "lz4_decode_window": {"lz4t_launch_dict": (6, 5),  # K3
                           "lz4t_launch_records": (8, 4)},  # K5 (and K6c)
     "lz4_encode_wide": {"lz4t_launch": (6, 5)},       # K6b
@@ -46,6 +47,7 @@ HOST_FNS = {
     "lz4t_host_encode_mid": (7, 7),
     "lz4t_host_encode_mid_serial": (7, 6),
     "lz4t_host_encode_deep": (7, 8),
+    "lz4t_host_encode_deep_plain": (5, 5),
     "lz4t_host_deep_chain": (5, 6),
     "lz4t_host_decode": (5, 3),
     "lz4t_host_decode_serial": (5, 3),

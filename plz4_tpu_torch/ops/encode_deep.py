@@ -16,6 +16,14 @@ head with the window cut to its last 32 KiB (the u16-delta-chain variant),
 else the depth-4 chain (encode_mid, which takes K6b at depth 2 for rows
 the byte-wide budget refuses). Rows of at most 64 KiB after windows of at
 most 64 KiB never take the last case; whole blocks over about 66 KiB do.
+
+Plain rows of at most PIPE_MAX_ROW bytes (every plain row of the batch
+layer) launch K4's pipelined kernel: the parse reads the walk table from a
+ring in shared memory that the block's other warps fill while it runs, so
+no table goes to device memory. Rows after a window, and wider plain rows,
+launch the kernel that writes the whole table to device memory first. The
+route follows from the shape alone (Dc == 0 and N); both give the same
+bytes.
 """
 
 from __future__ import annotations
@@ -38,8 +46,13 @@ WINDOW_CUT = 32768  # the u16-chain variant keeps the last 32 KiB of window
 LAZY_CAP = 64  # lazy matching stops at a match this long
 MIN_MATCH = 4
 
+# plain rows this wide or narrower take the pipelined kernel: the chain
+# ring (csrc/lz4_encode_deep.cuh: LZ4T_DEEP_RING) holds all their links
+PIPE_MAX_ROW = 65536
+
 launches = 0  # K4 launches by encode_batch_deep
 window_launches = 0  # K4 launches by encode_batch_deep_window
+pipelined_rows = 0  # rows that encode_batch_deep gave the pipelined kernel
 
 
 def deep_route(N: int, D: int | None) -> tuple[int, int] | None:
@@ -88,6 +101,25 @@ def _launch(data, lens, windows, wlens, D: int, chunks: int, tries: int,
     return out, totals, ok
 
 
+def _launch_plain(data, lens, tries: int, hash_log: int):
+    R, N = data.shape
+    data, lens = data.contiguous(), lens.contiguous()
+    out, totals, ok = empty_outputs(R, N, data.device)
+    if not R:
+        return out, totals, ok
+    # the chain's scratch, written before it is read; the walk table stays
+    # in shared memory
+    delta = torch.empty((R, N + 8), dtype=torch.int16, device=data.device)
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        _build.launch("lz4_encode_deep",
+                      (data.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                       totals.data_ptr(), ok.data_ptr(), delta.data_ptr()),
+                      (R, N, out.shape[1], tries, hash_log), stream,
+                      fn="lz4t_launch_plain")
+    return out, totals, ok
+
+
 def encode_batch_deep(data: torch.Tensor, lens: torch.Tensor,
                       tries: int = 16):
     """data (B, N) uint8 zero-padded rows with N % 4 == 0 and N <= 4 MiB,
@@ -95,14 +127,18 @@ def encode_batch_deep(data: torch.Tensor, lens: torch.Tensor,
     bool), walking at most `tries` chain links per search. On CUDA tensors
     it launches K4 on the current stream without synchronising; on CPU
     tensors it runs the plain version."""
-    global launches
+    global launches, pipelined_rows
     _, N = check_rows(data, lens)
     route = deep_route(N, None)
     if route is None:
         return encode_mid.encode_batch_mid(data, lens, depth4=True)
     if data.device.type == "cpu":
         return encode_batch_deep_plain(data, lens, tries)
-    res = _launch(data, lens, None, None, 0, 1, tries, route)
+    if N <= PIPE_MAX_ROW:
+        res = _launch_plain(data, lens, tries, route[0])
+        pipelined_rows += data.shape[0]
+    else:
+        res = _launch(data, lens, None, None, 0, 1, tries, route)
     if data.shape[0]:
         launches += 1
     return res

@@ -18,6 +18,7 @@ tests/test_torch_gpu.py holds the CUDA kernel to the plain version.
 import functools
 import os
 import random
+import re
 import shutil
 import sys
 
@@ -196,6 +197,11 @@ def _host_encode(lib, rows, lens, wins, wlens, tries, chunks=1):
     out = np.zeros((R, CAP), np.uint8)
     tot = np.zeros(R, np.int32)
     ok = np.zeros(R, np.uint8)
+    if wins is None and width <= encode_deep.PIPE_MAX_ROW:
+        lib.lz4t_host_encode_deep_plain(
+            rows.ctypes.data, lens.ctypes.data, out.ctypes.data,
+            tot.ctypes.data, ok.ctypes.data, R, width, CAP, tries, hash_log)
+        return out, tot, ok
     lib.lz4t_host_encode_deep(
         rows.ctypes.data, lens.ctypes.data,
         0 if wins is None else wins.ctypes.data,
@@ -593,3 +599,153 @@ def test_ring_rows_find_matches_at_the_window_edge():
     for r in range(3):
         offs = _offsets(got[0][r, :got[1][r]].tobytes())
         assert {65504, 65505, 65520, 65533, 65534, 65535} <= offs, r
+
+
+# ---------------------------------------------------------------------------
+# plain rows through the table ring (lz4t_pipe_tab): the parse waits for
+# each chunk of the walk table and hands it back once its scan has passed
+# it; the host build fills a chunk only when the parse waits for it and
+# poisons every chunk it hands back
+# ---------------------------------------------------------------------------
+
+def _deep_define(name: str) -> int:
+    """A #define of csrc/lz4_encode_deep.cuh."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "plz4_tpu_torch", "csrc",
+                           "lz4_encode_deep.cuh")) as f:
+        return int(re.search(rf"#define {name} (\d+)\b", f.read()).group(1))
+
+
+CHUNK = _deep_define("LZ4T_DEEP_PIPE_CHUNK")
+RING_ENTRIES = _deep_define("LZ4T_DEEP_PIPE_SLOTS") * CHUNK
+
+
+def _plant(row: bytearray, dst: int, src: int, n: int) -> None:
+    """Copy row[src:src + n] to dst, the bytes on either side of the copy
+    made to differ from those of its source, so the match is exactly n
+    bytes long."""
+    row[dst:dst + n] = row[src:src + n]
+    row[dst - 1] = row[src - 1] ^ 0xFF if src else row[dst - 1]
+    row[dst + n] = row[src + n] ^ 0xFF
+
+
+def _pipe_cases() -> dict:
+    """name -> (payload, [(match start, match length)] the stream must
+    hold)."""
+    out = {"shorter-than-a-chunk": (make_compressible(CHUNK - 300, seed=51),
+                                    []),
+           "not-a-multiple-of-the-chunk": (
+               make_compressible(RING_ENTRIES + 3 * CHUNK + 517, seed=52),
+               []),
+           "incompressible": (make_incompressible(N, seed=53), []),
+           "zeros": (bytes(N), [])}
+    # random bytes with planted copies (short rows: random bytes do not
+    # shrink). The scan's steps start at 130 + 32 j after the first match:
+    # the step from CHUNK - 30 finds the match at CHUNK + 1 in chunk 1;
+    # after it the steps start at CHUNK + 61 + 32 j, and the one from
+    # 8 CHUNK - 3 (the last entries of the ring's last slot and the first
+    # of its first) finds the match at 8 CHUNK + 5
+    row = bytearray(make_incompressible(RING_ENTRIES + 600, seed=54))
+    want = [(70, 60), (CHUNK + 1, 60), (RING_ENTRIES + 5, 60)]
+    for (dst, n), src in zip(want, (0, 200, 400)):
+        _plant(row, dst, src, n)
+    out["scan-straddles-two-chunks"] = (bytes(row), want)
+    # the scan's step from CHUNK - 32 finds a match at CHUNK - 1, its last
+    # entry: the lazy test then reads the first entry of chunk 1
+    row = bytearray(make_incompressible(2 * CHUNK, seed=56))
+    want = [(70, 58), (CHUNK - 1, 10)]
+    for (dst, n), src in zip(want, (0, 200)):
+        _plant(row, dst, src, n)
+    out["lazy-test-reads-the-next-chunk"] = (bytes(row), want)
+    # a 6,000-byte match: the parse passes chunks it never reads, then
+    # scans on
+    row = bytearray(make_incompressible(28000, seed=55))
+    _plant(row, 20000, 1000, 6000)
+    out["match-skips-whole-chunks"] = (bytes(row), [(20000, 6000)])
+    return out
+
+
+PIPE_CASES = _pipe_cases()
+
+
+@functools.lru_cache(maxsize=None)
+def _pipe(tries: int):
+    rows, lens = _rows([p for p, _ in PIPE_CASES.values()], N)
+    ref = _np(encode_pallas.encode_batch_pallas_deep(
+        jnp.asarray(rows), jnp.asarray(lens), interpret=True, tries=tries))
+    plain = _np(encode_deep.encode_batch_deep_plain(*_t(rows, lens), tries))
+    return (rows, lens), ref, plain
+
+
+def _sequences(stream: bytes) -> list:
+    """(match start, match length) of each sequence of an LZ4 block
+    stream with a match."""
+    out, ip, pos = [], 0, 0
+    while True:
+        tok = stream[ip]
+        ip += 1
+        lit = tok >> 4
+        if lit == 15:
+            while stream[ip] == 255:
+                lit += 255
+                ip += 1
+            lit += stream[ip]
+            ip += 1
+        ip += lit
+        pos += lit
+        if ip >= len(stream):
+            return out
+        ip += 2
+        m = tok & 15
+        if m == 15:
+            while stream[ip] == 255:
+                m += 255
+                ip += 1
+            m += stream[ip]
+            ip += 1
+        out.append((pos, m + 4))
+        pos += m + 4
+
+
+def _pipe_params():
+    return [pytest.param(tries, name, id=f"{name}-t{tries}")
+            for tries in TRIES for name in PIPE_CASES]
+
+
+@pytest.mark.parametrize("tries,name", _pipe_params())
+def test_pipelined_rows_match_pallas_and_plain(tries, name, host_lib):
+    (rows, lens), ref, plain = _pipe(tries)
+    i = list(PIPE_CASES).index(name)
+    host = _host_encode(host_lib, rows, lens, None, None, tries)
+    _assert_same(ref, plain, i)
+    _assert_same(ref, host, i)
+    _assert_same(plain, host, i)  # all bytes, also where ok is false
+    payload, want = PIPE_CASES[name]
+    if name == "incompressible":
+        assert not ref[2][i]
+        return
+    assert ref[2][i]
+    stream = host[0][i, :host[1][i]].tobytes()
+    assert native.decompress(stream, len(payload)) == payload
+    seqs = _sequences(stream)
+    assert seqs[:len(want)] == want
+    if name == "zeros":  # capped entries, walked again: one long match
+        assert seqs[0][1] > N - 100
+    if name == "scan-straddles-two-chunks":
+        for (a, m), (b, _) in zip(seqs, seqs[1:]):
+            step = a + m + (b - a - m) // 32 * 32  # the step that found b
+            assert step // CHUNK != (step + 31) // CHUNK
+    if name == "match-skips-whole-chunks":
+        a, m = seqs[0]
+        assert (a + m) // CHUNK - -(-a // CHUNK) >= 2
+
+
+def test_pipe_ring_fits_shared_memory():
+    slots = _deep_define("LZ4T_DEEP_PIPE_SLOTS")
+    assert slots & (slots - 1) == 0
+    assert CHUNK & (CHUNK - 1) == 0 and CHUNK % 32 == 0
+    assert _deep_define("LZ4T_DEEP_RING") == encode_deep.PIPE_MAX_ROW
+    # the chain ring, the table ring with two mbarriers a slot, the widest
+    # row: within a block's 232,448 bytes
+    assert (2 * encode_deep.PIPE_MAX_ROW + slots * (CHUNK * 4 + 16)
+            + encode_deep.PIPE_MAX_ROW + 8) <= 232448

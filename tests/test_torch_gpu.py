@@ -314,19 +314,61 @@ def test_encode_deep_kernel_matches_plain(cuda, tries):
     windows cut to their last 32 KiB; no preload stride)."""
     rows, lens = _rows(_payloads(), N)
     before = encode_deep.launches
+    piped = encode_deep.pipelined_rows
     kern = encode_deep.encode_batch_deep(rows.to(cuda), lens.to(cuda), tries)
     assert encode_deep.launches == before + 1
+    assert encode_deep.pipelined_rows == piped + rows.shape[0]
     plain = encode_deep.encode_batch_deep_plain(rows, lens, tries)
     _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
     for (d, l, w, wlen), kw in _window_batches():
         kw.pop("wstride", None)
         before = encode_deep.window_launches
+        piped = encode_deep.pipelined_rows
         kern = encode_deep.encode_batch_deep_window(
             d.to(cuda), l.to(cuda), w.to(cuda), wlen.to(cuda), tries, **kw)
         assert encode_deep.window_launches == before + 1
+        assert encode_deep.pipelined_rows == piped
         plain = encode_deep.encode_batch_deep_window_plain(d, l, w, wlen,
                                                            tries, **kw)
         _same_rows(kern, plain, torch.where(plain[2], plain[1], 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tries", [2, 32])
+def test_encode_deep_pipelined_base_rows_match_plain(cuda, tries):
+    """The frame cell's 512 base blocks (benchmark/corpus.py) through the
+    pipelined kernel of plain rows: ok, total and bytes as the plain
+    version gives them, one launch, every row counted."""
+    from benchmark import corpus as bench_corpus
+
+    base = bench_corpus.silesia_bulk(512 * N)
+    rows = torch.from_numpy(np.frombuffer(base[:512 * N], np.uint8)
+                            .reshape(512, N).copy())
+    lens = torch.full((512,), N, dtype=torch.int32)
+    before, piped = encode_deep.launches, encode_deep.pipelined_rows
+    kern = encode_deep.encode_batch_deep(rows.to(cuda), lens.to(cuda), tries)
+    assert encode_deep.launches == before + 1
+    assert encode_deep.pipelined_rows == piped + 512
+    plain = encode_deep.encode_batch_deep_plain(rows, lens, tries)
+    assert bool(plain[2].all())
+    _same_rows(kern, plain, plain[1])
+
+
+@pytest.mark.gpu
+def test_encode_deep_wider_plain_rows_take_the_table_kernel(cuda):
+    """Plain rows wider than the chain ring (N > 65,536) keep the walk
+    table in device memory: not pipelined, the same bytes."""
+    width = N + 1024
+    text = corpus.silesia_like(2 * width, seed=21)
+    rows, lens = _rows([text[:width], text[width:2 * width - 77], b"\x00"
+                        * width], width)
+    before, piped = encode_deep.launches, encode_deep.pipelined_rows
+    kern = encode_deep.encode_batch_deep(rows.to(cuda), lens.to(cuda), 32)
+    assert encode_deep.launches == before + 1
+    assert encode_deep.pipelined_rows == piped
+    plain = encode_deep.encode_batch_deep_plain(rows, lens, 32)
+    assert bool(plain[2].all())
+    _same_rows(kern, plain, plain[1])
 
 
 @pytest.mark.gpu
