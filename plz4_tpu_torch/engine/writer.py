@@ -164,7 +164,7 @@ class FrameWriter:
         self._pool: ThreadPoolExecutor | None = None
         self._pending: deque = deque()  # (future, src_len)
         # rolling window for linked mode; constant dict for independent mode
-        self._window = bytearray(self._o.dictionary or b"")
+        self._window = bytes(self._o.dictionary or b"")
         self._group: list = []  # (src, dict, level) awaiting dispatch
         self._group_n = _group_size(self._o.block_size_idx)
         self._use_device = self._o.backend == "device"
@@ -334,17 +334,19 @@ class FrameWriter:
         self._write_out(raw)
         self._header_written = True
 
-    def _current_dict(self) -> bytes | None:
-        if self._o.block_linked:
-            return bytes(self._window) if self._window else None
-        return self._o.dictionary
-
-    def _advance_window(self, src: bytes) -> None:
+    def _block_dict(self, src: bytes) -> bytes | None:
+        """The window src's block encodes after: in linked mode a snapshot
+        of the trailing 64 KiB, which then advances over src; else the
+        frame's dictionary."""
         if not self._o.block_linked:
-            return
-        self._window += src
-        if len(self._window) > WINDOW_SIZE:
-            del self._window[: len(self._window) - WINDOW_SIZE]
+            return self._o.dictionary
+        with span("writer.window"):
+            d = self._window or None
+            # a block of WINDOW_SIZE or more holds the whole next window;
+            # the window of a full block is the block itself, not a copy
+            self._window = (src if len(src) >= WINDOW_SIZE
+                            else self._window + src)[-WINDOW_SIZE:]
+            return d
 
     def _submit_block(self, src: bytes) -> None:
         self._ensure_header()
@@ -356,8 +358,7 @@ class FrameWriter:
             # stream context below carries it)
             self._submit_sync_linked(src)
             return
-        d = self._current_dict()
-        self._advance_window(src)
+        d = self._block_dict(src)
 
         if self._use_device:
             # windows were snapshotted above, so linked/dict blocks still

@@ -314,10 +314,11 @@ def _dispatch(kernel, host_args, dev: torch.device, extra=()):
     the host and the CUDA event that marks them ready (None on the CPU,
     where the plain version runs synchronously). On CUDA the outputs come
     back by asynchronous copies into pinned pool tensors."""
-    with span("batch.enqueue", d2h_bytes=0) as sp:
+    with span("batch.enqueue", h2d_bytes=0, d2h_bytes=0) as sp:
         if dev.type == "cpu":
             return kernel(*host_args, *extra), None
         args = [a.to(dev, non_blocking=True) for a in host_args]
+        sp.add(h2d_bytes=sum(a.nbytes for a in host_args))
         outs = kernel(*args, *extra)
         host = [_pool.take(o.shape, o.dtype, True) for o in outs]
         for h, o in zip(host, outs):
@@ -386,20 +387,23 @@ def encode_blocks_begin(blocks: list[bytes], block_size: int, level: int = 1,
             a[len(blocks):] = 0
             staging = [arr, lens]
             if windowed:
-                # right-aligned (B, 64 KiB) windows, each row's usable length
-                # in wlens; every window position seeds the tables (wstride 1)
-                darr = _pool.take((B, WINDOW), torch.uint8, pinned)
-                dlens = _pool.take((B,), torch.int32, pinned)
-                da, dl = darr.numpy(), dlens.numpy()
-                da.fill(0)
-                dl.fill(0)
-                for i, d in enumerate(dicts):
-                    if d:
-                        d = d[-WINDOW:]
-                        da[i, WINDOW - len(d):] = np.frombuffer(
-                            d, dtype=np.uint8)
-                        dl[i] = len(d)
-                staging += [darr, dlens]
+                with span("batch.stage_window"):
+                    # right-aligned (B, 64 KiB) windows, each row's usable
+                    # length in wlens; every window position seeds the
+                    # tables (wstride 1)
+                    darr = _pool.take((B, WINDOW), torch.uint8, pinned)
+                    dlens = _pool.take((B,), torch.int32, pinned)
+                    da, dl = darr.numpy(), dlens.numpy()
+                    dl.fill(0)
+                    for i, d in enumerate(dicts):
+                        d = d[-WINDOW:] if d else b""
+                        da[i, : WINDOW - len(d)] = 0
+                        if d:
+                            da[i, WINDOW - len(d):] = np.frombuffer(
+                                d, dtype=np.uint8)
+                            dl[i] = len(d)
+                    da[len(dicts):] = 0
+                    staging += [darr, dlens]
         if windowed:
             kernel = (dispatch_encode_dict_array if array_path
                       else dispatch_encode_dict)

@@ -36,13 +36,20 @@ The spans, by the layer they sit in (each name is "plz4." + the name):
                     one-shot check, the Writer's construction and
                     getvalue()
     writer.write    FrameWriter._write: the block cut
+    writer.window   linked blocks: the 64 KiB window's snapshot for a
+                    block and its advance over the block (a child of
+                    writer.write, or of writer.close for the last block)
     writer.drain    one device batch's results framed and written
     writer.close    flush and trailer
     batch.begin     parallel.batch.encode_blocks_begin
     batch.stage     the rows copied into pinned staging tensors
+    batch.stage_window
+                    a batch with windows (linked blocks, a dictionary):
+                    the windows copied into their own staging tensor
     batch.enqueue   the copies to the card, the launches and the copies
-                    back; count d2h_bytes, the bytes copied back (0 on
-                    the CPU, where nothing is copied)
+                    back; counts h2d_bytes and d2h_bytes, the bytes
+                    copied to the card and back (0 on the CPU, where
+                    nothing is copied)
     batch.result    Pending.result
     batch.wait      the host blocked on the batch's event
     batch.assemble  the batch's steps: stored bytes and raw decisions

@@ -1,7 +1,8 @@
 """The port's device level ladder as a whole: frames at levels 3-12 (the
 depth-2 chain K2c at 3-7, the depth-4 chain K2d at 8, the deep hash-chain
 finder K4 at 9-12) at 64 KiB blocks, at 256 KiB blocks (64 KiB chunk rows),
-with linked blocks and with a dictionary. Levels that share a kernel with a
+with linked blocks (at levels 6, 9 and 12: K4's window rows at the last two)
+and with a dictionary. Levels that share a kernel with a
 level held to the reference here (4-7 with 3; 10 and 11 with 9 and 12, at
 other walk budgets) are pinned by the batch layer's routing and by the
 kernel parity files (test_torch_encode_mid.py, test_torch_encode_deep.py).
@@ -44,6 +45,8 @@ CASES |= {
     "256KB-l8": dict(level=8, block_size_idx=KB256),
     "256KB-l9": dict(level=9, block_size_idx=KB256),
     "linked-l6": dict(level=6, block_size_idx=KB64, block_linked=True),
+    "linked-l9": dict(level=9, block_size_idx=KB64, block_linked=True),
+    "linked-l12": dict(level=12, block_size_idx=KB64, block_linked=True),
     "dict-l9": dict(level=9, block_size_idx=KB64, dictionary=DICT),
 }
 DICTS = {name: kw.get("dictionary") for name, kw in CASES.items()}

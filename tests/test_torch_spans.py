@@ -21,13 +21,18 @@ BATCHES = 3
 PER_BATCH = ("batch.begin", "batch.stage", "batch.enqueue", "writer.drain",
              "batch.result", "batch.wait", "batch.assemble")
 PER_CALL = ("compress", "writer.write", "writer.close")
+BLOCKS = 10
+# linked blocks add the window's spans: one a block, one a batch
+WINDOW_SPANS = {"writer.window": BLOCKS, "batch.stage_window": BATCHES}
 # each span's parent on this path; batch.begin and writer.drain run in
 # writer.write while batches fill, the last ones in writer.close
 PARENTS = {"compress": {None}, "writer.write": {"compress"},
            "writer.close": {"compress"},
            "batch.begin": {"writer.write", "writer.close"},
            "writer.drain": {"writer.write", "writer.close"},
+           "writer.window": {"writer.write", "writer.close"},
            "batch.stage": {"batch.begin"}, "batch.enqueue": {"batch.begin"},
+           "batch.stage_window": {"batch.stage"},
            "batch.result": {"writer.drain"},
            "batch.wait": {"batch.result"},
            "batch.assemble": {"batch.result"}}
@@ -76,12 +81,42 @@ def test_off_span_is_one_shared_object():
     assert spans.totals() == {}
 
 
+def test_linked_off_records_nothing(data, monkeypatch):
+    """Linked blocks' window spans record nothing without a profiler."""
+    def refuse(*a, **k):
+        raise AssertionError("record_function called with tracing off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    spans.reset()
+    frame = _compress(data, block_linked=True)
+    assert plz4.decompress(frame) == data
+    assert spans.totals() == {} and spans.records() == []
+
+
+@pytest.mark.parametrize("opts", OPTIONS.values(), ids=list(OPTIONS))
+def test_window_spans_fire_for_linked_blocks_alone(data, opts):
+    """A linked compress records writer.window once a block and
+    batch.stage_window once a batch; an independent one records neither."""
+    _compress(data, **opts)
+    with profile(activities=[ProfilerActivity.CPU]):
+        _compress(data, **opts)
+    t = spans.totals()
+    got = {name: t[spans.PREFIX + name]["n"] for name in WINDOW_SPANS
+           if spans.PREFIX + name in t}
+    assert got == (WINDOW_SPANS if opts.get("block_linked") else {})
+    for name in got:
+        assert 0 <= t[spans.PREFIX + name]["self_seconds"] <= t[
+            "plz4.compress"]["seconds"]
+
+
 @pytest.mark.parametrize("opts", OPTIONS.values(), ids=list(OPTIONS))
 def test_traced_call_records_the_tree(data, opts):
     frame = _compress(data, **opts)  # untraced: the recording starts anew
     with profile(activities=[ProfilerActivity.CPU]):
         frames = [_compress(data, **opts) for _ in range(2)]
     assert frames == [frame, frame]
+    windows = WINDOW_SPANS if opts.get("block_linked") else {}
     recs = spans.records()
     by_id = {r["id"]: r for r in recs}
     calls = {r["call"] for r in recs}
@@ -89,11 +124,14 @@ def test_traced_call_records_the_tree(data, opts):
     for call in calls:
         mine = [r for r in recs if r["call"] == call]
         names = [_short(r["name"]) for r in mine]
-        assert sorted(set(names)) == sorted(PER_CALL + PER_BATCH)
+        assert sorted(set(names)) == sorted(PER_CALL + PER_BATCH
+                                            + tuple(windows))
         for name in PER_CALL:
             assert names.count(name) == 1
         for name in PER_BATCH:
             assert names.count(name) == BATCHES, name
+        for name, n in windows.items():
+            assert names.count(name) == n, name
         root = [r for r in mine if r["parent"] is None]
         assert len(root) == 1 and root[0]["id"] == call
         assert _short(root[0]["name"]) == "compress"
@@ -106,10 +144,13 @@ def test_traced_call_records_the_tree(data, opts):
                 assert (p["start_ns"] <= r["start_ns"] <= r["end_ns"]
                         <= p["end_ns"])
     t = spans.totals()
-    assert {_short(k) for k in t} == set(PER_CALL + PER_BATCH)
+    assert {_short(k) for k in t} == set(PER_CALL + PER_BATCH
+                                         + tuple(windows))
     assert t["plz4.compress"]["n"] == 2
     assert t["plz4.batch.enqueue"]["n"] == 2 * BATCHES
-    assert t["plz4.batch.enqueue"]["d2h_bytes"] == 0  # nothing copied back
+    # nothing copied to the card or back
+    assert t["plz4.batch.enqueue"]["h2d_bytes"] == 0
+    assert t["plz4.batch.enqueue"]["d2h_bytes"] == 0
 
 
 def test_self_times_sum_to_the_root(data):
