@@ -297,27 +297,38 @@ class FrameWriter:
             self._err = e
 
     def _write(self, data) -> int:
-        with span("writer.write"):
+        with span("writer.write", cut_bytes=0) as sp:
             # cast to a bytes view: for non-uint8 buffers (e.g. an 'I'-typed
             # array) len(mv) counts ELEMENTS while slices copy bytes, which
             # would emit oversized blocks and miscount content_size
             mv = memoryview(data).cast("B")
-            consumed = 0
+            # the device path hands a full block of an immutable input on
+            # as a view of it: nothing can change it while the block waits
+            # in a batch. A mutable buffer may change once write() returns,
+            # so its blocks are copied, as on the native backends.
+            view = self._use_device and type(mv.obj) is bytes
+            consumed = cut = 0
             bs = self._o.block_size
             while consumed < len(mv):
                 if not self._stage and len(mv) - consumed >= bs:
                     # full block straight from the caller's buffer (reference:
                     # large-write no-copy path, sync/writer.go:96-107)
-                    self._submit_block(bytes(mv[consumed:consumed + bs]))
+                    blk = mv[consumed:consumed + bs]
+                    if not view:
+                        blk = bytes(blk)
+                        cut += bs
+                    self._submit_block(blk)
                     consumed += bs
                 else:
                     take = min(bs - len(self._stage), len(mv) - consumed)
                     self._stage += mv[consumed:consumed + take]
                     consumed += take
+                    cut += take
                     if len(self._stage) == bs:
                         self._submit_block(bytes(self._stage))
                         self._stage.clear()
             self._src_total += consumed
+            sp.add(cut_bytes=cut)
             return consumed
 
     def _ensure_header(self) -> None:
@@ -334,7 +345,8 @@ class FrameWriter:
         self._write_out(raw)
         self._header_written = True
 
-    def _block_dict(self, src: bytes) -> bytes | None:
+    def _block_dict(
+            self, src: bytes | memoryview) -> bytes | memoryview | None:
         """The window src's block encodes after: in linked mode a snapshot
         of the trailing 64 KiB, which then advances over src; else the
         frame's dictionary."""
@@ -344,11 +356,12 @@ class FrameWriter:
             d = self._window or None
             # a block of WINDOW_SIZE or more holds the whole next window;
             # the window of a full block is the block itself, not a copy
+            # (a view where the block is one); join, unlike +, takes views
             self._window = (src if len(src) >= WINDOW_SIZE
-                            else self._window + src)[-WINDOW_SIZE:]
+                            else b"".join((self._window, src)))[-WINDOW_SIZE:]
             return d
 
-    def _submit_block(self, src: bytes) -> None:
+    def _submit_block(self, src: bytes | memoryview) -> None:
         self._ensure_header()
         if self._hasher is not None:
             self._hasher.update(src)

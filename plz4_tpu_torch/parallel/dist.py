@@ -87,11 +87,21 @@ def _raise_of(marker, rank: int):
     return RuntimeError(f"a block slice failed on rank {rank}:\n{what}")
 
 
+def _picklable(results: list) -> list:
+    """A slice's results with each memoryview made bytes: a block stored
+    raw is the block itself, which the Writer may cut as a view of the
+    caller's bytes, and a view cannot be pickled."""
+    return [tuple(bytes(x) if isinstance(x, memoryview) else x for x in r)
+            if isinstance(r, tuple)
+            else bytes(r) if isinstance(r, memoryview) else r
+            for r in results]
+
+
 def gather_outcomes(mesh: mesh_mod.BlockMesh, outcomes: dict) -> dict:
     """All-gather the slice outcomes {slice: (None, results) or (key,
     error)} of every rank, so that every rank holds every slice's results
     and raises the same first error. No rank raises before this call."""
-    mine = {k: (key, _marker(r) if key is not None else r)
+    mine = {k: (key, _marker(r) if key is not None else _picklable(r))
             for k, (key, r) in outcomes.items()}
     every: list = [None] * tdist.get_world_size()
     t0 = time.perf_counter()

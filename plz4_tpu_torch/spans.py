@@ -35,7 +35,10 @@ The spans, by the layer they sit in (each name is "plz4." + the name):
     compress        api.compress; its self time is the Options, the
                     one-shot check, the Writer's construction and
                     getvalue()
-    writer.write    FrameWriter._write: the block cut
+    writer.write    FrameWriter._write: the block cut; counts cut_bytes,
+                    the bytes it copies out of the caller's buffer (0 for
+                    a full block of a bytes input on the device path,
+                    which is handed on as a view)
     writer.window   linked blocks: the 64 KiB window's snapshot for a
                     block and its advance over the block (a child of
                     writer.write, or of writer.close for the last block)

@@ -41,7 +41,11 @@ _WORKER = textwrap.dedent("""
     rng = np.random.default_rng(42)
     words = [bytes(rng.integers(97, 123, 8, dtype=np.uint8))
              for _ in range(64)]
-    data = b" ".join(words[int(rng.integers(64))] for _ in range(40000))
+    text = b" ".join(words[int(rng.integers(64))] for _ in range(40000))
+    # two incompressible 64 KiB blocks (the 3rd and 4th) are stored raw:
+    # their payload is a view of the input, and crosses ranks all the same
+    noise = rng.integers(0, 256, 2 * 65536, dtype=np.uint8).tobytes()
+    data = text[:2 * 65536] + noise + text[2 * 65536:]
 
     # option matrix: plain 64 KiB; checksummed; 256 KiB blocks (the
     # chunked large-block path sharded across ranks)

@@ -153,6 +153,23 @@ def test_traced_call_records_the_tree(data, opts):
     assert t["plz4.batch.enqueue"]["d2h_bytes"] == 0
 
 
+TAIL = 4000  # a short last block
+CUTS = {"bytes": (bytes, 9 * N, 0), "bytearray": (bytearray, 9 * N, 9 * N),
+        "bytes_tail": (bytes, 9 * N + TAIL, TAIL)}
+
+
+@pytest.mark.parametrize("kind,n,cut", CUTS.values(), ids=list(CUTS))
+def test_writer_write_counts_the_bytes_its_cut_copies(data, kind, n, cut):
+    """writer.write's cut_bytes: 0 for full blocks of bytes (handed on as
+    views), every byte of a bytearray's, and a short last block's (staged)."""
+    src = kind(data[:n])
+    _compress(src)
+    with profile(activities=[ProfilerActivity.CPU]):
+        frame = _compress(src)
+    assert spans.totals()["plz4.writer.write"]["cut_bytes"] == cut
+    assert plz4.decompress(frame) == data[:n]
+
+
 def test_self_times_sum_to_the_root(data):
     _compress(data)
     with profile(activities=[ProfilerActivity.CPU]):
