@@ -4,8 +4,7 @@
 // _decode_kernel_bw (reached through decode_block_pallas and
 // decode_batch_pallas): the same ok, n_out and bytes [0, n_out) as its
 // byte-serial careful tier, corrupt input included (the rules are in
-// lz4_decode.cuh, whose serial body lz4t_decode_row the host build keeps
-// as the reference of the new one).
+// lz4_decode_ring.cuh).
 //
 // What bounds it on this card: the sequence loop is serial and data
 // dependent (each token's position follows from the sequence before it),

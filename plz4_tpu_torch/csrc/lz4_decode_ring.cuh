@@ -1,19 +1,47 @@
 // K1, K3 and K6a's row body: a parse thread feeding byte-parallel copy
 // warps through a ring of sequences in shared memory.
 //
-// lz4t_parse_strict runs the per-sequence rules of lz4t_decode_row (K1,
-// reads past C clip to the row's last byte, a run of 255s that reaches it
-// never ends), of lz4t_decode_window_row in strict mode (K3, reads past C
-// return 0, offsets may reach dlen bytes into the window) or of
-// lz4t_decode_wide_row (K6a, kCountBad: reads past C return 0, and a
-// literal run that fails its checks copies nothing but still counts in
-// n_out), rewritten in emit form: it copies nothing itself and hands each
+// The rules. Each kernel returns what a Pallas TPU kernel of
+// plz4_tpu/ops/decode_pallas.py returns: K1 _decode_kernel_bw's, K3
+// _decode_dict_kernel's in strict mode (its rules are in
+// lz4_decode_window.cuh), K6a _decode_kernel's, the packed-word kernel that
+// decode_block_pallas takes when out_cap > 96 KiB (up to the 4 MiB LZ4
+// block). Their byte-serial "careful" tier defines the result; their
+// straight-line fast tiers and word copies are a TPU optimisation that
+// returns the same (ip, op, ok) and the same bytes [0, op) on every input,
+// so one exact sequence loop stands for all of them. K1's:
+//   * ok starts as clen > 0;
+//   * per sequence: bad = ip >= clen; after the literal length,
+//     bad |= ip+lit > clen | op+lit > out_cap (no literals copied then);
+//     stop when ip >= clen after the literals; after the 2-byte offset,
+//     bad |= ip > clen | off == 0; after the match length,
+//     bad |= op+ml > out_cap | off > op (no match bytes copied then);
+//   * at the end ok &= ip == clen and n_out = op.
+// Every read of the input clips at C - 1, as the kernel's do, so rows need
+// zero padding past clen; a run of 255s that reaches the clipped last byte
+// never ends in the Pallas kernel, and here ends with a length no bounds
+// check accepts. Match-length extensions are not checked against clen, and
+// the LZ4 end-of-block rules are not enforced: neither is by the Pallas
+// kernel. K6a's loop is K1's with two differences: its wrapper appends 8
+// zero bytes to the row and clips every read there, so a read at or past C
+// returns 0; and a literal run that fails its checks copies nothing, but ip
+// and op still advance by its full length before the loop stops
+// (decode_pallas.py:248-249), so n_out on a corrupt stream can exceed
+// out_cap, and bytes [0, n_out) are then not all written (K1 advances by 0
+// there). Match copies follow the LZ4 semantics (a byte-serial forward
+// copy). The plain versions in plz4_tpu_torch/ops/decode.py
+// (decode_row_plain, decode_window_row_plain, decode_row_wide_plain) run
+// this loop over Python bytes.
+//
+// lz4t_parse_strict runs the loop of K1 (kClip), of K3 (reads past C
+// return 0, offsets may reach dlen bytes into the window) or of K6a
+// (kCountBad) in emit form: it copies nothing itself and hands each
 // sequence, (ip, n_lit, off, m), to emit in order with exactly the bytes
-// the serial loop would copy: a sequence whose literals fail its checks
-// copies nothing and ends the row, one whose match fails copies its
-// literals only. lz4t_copy_batch_lanes (lz4_decode_window.cuh) then writes
-// the bytes [0, n_out) the serial loop writes (K6a: the bytes it writes),
-// 32 sequences at a time.
+// the loop copies: a sequence whose literals fail its checks copies
+// nothing and ends the row, one whose match fails copies its literals
+// only. lz4t_copy_batch_lanes (lz4_decode_window.cuh) then writes the bytes
+// [0, n_out) the loop writes (K6a: the bytes it writes), 32 sequences at a
+// time.
 //
 // The parse and the copies read the row through a Row: lz4t_pad_row, a
 // padded copy in shared memory (K1, K3) whose C bytes are followed by
@@ -39,7 +67,6 @@
 // batch whenever the parse finds the ring full.
 #pragma once
 
-#include "lz4_decode.cuh"
 #include "lz4_decode_window.cuh"
 
 #define LZ4T_RING_BATCHES 64  // ring slots (a power of 2), 32 sequences
@@ -155,10 +182,10 @@ LZ4T_HD int lz4t_pad_varint(const uint32_t* cw, int C, int p, int* len) {
 // kCountBad, dlen 0), read through row, handing its sequences to emit in
 // order: emit.open() before each batch of 32 (emit.k, the count so far, is
 // then a multiple of 32), then emit(ip, n_lit, off, m) for each sequence,
-// with the literals and match bytes that the serial loop copies (the last
+// with the literals and match bytes that the rules' loop copies (the last
 // one may copy nothing). out_len is the output cap. kCountBad: n_out
 // counts the full length of a literal run that fails its checks, as K6a's
-// serial loop advances past it uncopied (so n_out may exceed out_len on a
+// loop advances past it uncopied (so n_out may exceed out_len on a
 // corrupt stream, with ok false).
 //
 // Written for one thread's dependent chain, whose links are row reads and
@@ -170,7 +197,7 @@ LZ4T_HD int lz4t_pad_varint(const uint32_t* cw, int C, int p, int* len) {
 // extension bytes branches (its 255s, then the loop). The match is emitted
 // before its checks are known, which hold on every valid stream: where
 // they fail, the next pass takes the match back (emit.drop_last) and
-// stops, as the serial loop stops after copying the literals only. A batch
+// stops, as the rules' loop stops after copying the literals only. A batch
 // is published by the next open(), or by finish(), so drop_last may still
 // change its last sequence.
 template <bool kClip, bool kCountBad, class Row, class Emit>

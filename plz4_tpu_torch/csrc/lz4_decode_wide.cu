@@ -5,9 +5,8 @@
 // _decode_kernel, the packed-word kernel that decode_block_pallas takes
 // when out_cap > 96 KiB (decode_batch_pallas over whole blocks of 256 KiB
 // to 4 MiB). It returns that kernel's ok and n_out, and its bytes
-// [0, n_out) where ok holds, corrupt input included: the rules of the
-// serial body lz4t_decode_wide_row (lz4_decode_wide.cuh), which the host
-// build keeps as the reference of this one.
+// [0, n_out) where ok holds, corrupt input included (the rules are in
+// lz4_decode_ring.cuh).
 //
 // What bounds it on this card: the sequence loop is serial and data
 // dependent (each token's position follows from the sequence before it),

@@ -8,9 +8,8 @@
 // K3 replaces the Pallas TPU kernel plz4_tpu/ops/decode_pallas.py:
 // _decode_dict_kernel with strict=True (decode_block_pallas_dict, batched
 // by plz4_tpu/parallel/batch.py:_decode_batch_dict_pallas): whole blocks of
-// a dictionary frame against the frame's dictionary. Its rules are those of
-// lz4t_decode_window_row (lz4_decode_window.cuh), the serial body that the
-// host build keeps as the new one's reference. It is K1's design with a
+// a dictionary frame against the frame's dictionary. Its rules are in
+// lz4_decode_window.cuh (strict mode). It is K1's design with a
 // window (lz4_decode.cu says why): the parse is one dependent chain, so
 // warp 0's lane 0 only parses and hands each sequence through a ring of
 // 64 slots of 32 sequences (full/empty mbarriers) to warps 1-7, which

@@ -3,12 +3,12 @@
 // record mode) and _decode_kernel_bw_rec (record mode) compute. Their word
 // copies, 8-wide wild copies and straight-line fast tiers return the same
 // (ip, op, ok) and the same bytes [0, op) as their byte-serial careful
-// path, so one exact loop stands for all of them. Two row bodies share the
-// rules below: lz4t_decode_window_row, one thread, strict mode (K3's serial
-// body: the host build's reference for lz4_decode_ring.cuh, which K3 runs
-// on the card), and lz4t_decode_record, record mode (K5 and K6c), whose
-// scalar parse hands each sequence's copies to warps that copy byte-
-// parallel (lz4t_copy_batch_lanes, K1's and K3's copies too).
+// path, so one exact loop stands for all of them. Two row bodies run the
+// rules below: lz4t_parse_strict in lz4_decode_ring.cuh, strict mode (K3),
+// and lz4t_decode_record, record mode (K5 and K6c); each hands its
+// sequences to warps that copy byte-parallel (lz4t_copy_batch_lanes, K1's
+// and K6a's copies too). The plain version is decode_window_row_plain
+// (plz4_tpu_torch/ops/decode.py).
 //
 // meta = [clen, dlen, pre_lit, pre_skip, pre_moff, pre_mlen, out_len]
 // (the native lz4r_chunk_split record layout, dlen in meta[1]); win holds W
@@ -62,62 +62,6 @@
 #pragma once
 
 #include "lz4_lanes.cuh"
-
-// m match bytes to o[op..) from op - off: sources before the row's first
-// output byte come from the window, the rest from the output itself
-// (overlapping copies repeat the period, byte by byte).
-LZ4T_HD void lz4t_copy_match_w(uint8_t* o, int op, int off, int m,
-                               const uint8_t* win, int W) {
-  if (off < 1) off = 1;
-  int i = 0;
-  for (; i < m && op + i < off; i++) {
-    const int w = W - off + op + i;
-    o[op + i] = w >= 0 ? win[w] : 0;
-  }
-  for (; i < m; i++) o[op + i] = o[op + i - off];
-}
-
-// c: the compressed row, C bytes; win: W window bytes; o: cap output bytes.
-// Strict mode, one thread (K3).
-LZ4T_HD void lz4t_decode_window_row(const uint8_t* c, int C,
-                                    const int32_t* meta, const uint8_t* win,
-                                    int W, uint8_t* o, int cap, int* n_out,
-                                    int* ok_out) {
-  const int clen = meta[0];
-  const int dlen = meta[1];
-  const int out_len = lz4t_min(meta[6], cap);
-  int ip = 0, op = 0, ok = clen > 0, done = clen <= 0;
-  while (!done) {
-    int bad = ip >= clen;
-    const int token = lz4t_rdz(c, C, ip);
-    ip++;
-    int lit = token >> 4;
-    if (lit == 15) ip = lz4t_varint_z(c, C, ip, &lit);
-    bad |= (ip + lit > clen) | (op + lit > out_len);
-    const int lit_n = bad ? 0 : lit;
-    for (int i = 0; i < lit_n; i++)
-      o[op + i] = (uint8_t)lz4t_rdz(c, C, ip + i);
-    ip += lit_n;
-    op += lit_n;
-    const int fin = (ip >= clen) | bad;
-    if (!fin) {
-      const int off = lz4t_rdz(c, C, ip) | (lz4t_rdz(c, C, ip + 1) << 8);
-      ip += 2;
-      bad |= (ip > clen) | (off == 0);
-      int ml = token & 15;
-      if (ml == 15) ip = lz4t_varint_z(c, C, ip, &ml);
-      ml += 4;
-      bad |= (off > op + dlen) | (op + ml > out_len);
-      const int m_n = bad ? 0 : ml;
-      lz4t_copy_match_w(o, op, off, m_n, win, W);
-      op += m_n;
-    }
-    ok = ok && !bad;
-    done = fin | bad;
-  }
-  *n_out = op;
-  *ok_out = ok && ip == clen;
-}
 
 #define LZ4T_COPY_WARPS 8  // K5's copy warps
 #define LZ4T_COPY_BAR 1    // named barrier of the copy steps (0 is

@@ -36,17 +36,17 @@
 // The stored word of a slot. The Pallas kernel keeps it in a second table
 // (vtab[h] = u beside tab[h] = p + 1). Every stored p lies below the clip
 // (p <= mflimit, p <= nip - 2 or p < base) and the row never changes, so
-// vtab[h] always equals the word at tab[h] - 1: kVtab = false re-reads it
+// vtab[h] always equals the word at tab[h] - 1: the parse re-reads it
 // there instead, which halves the tables' shared memory.
 //
-// Two bodies give these bytes. lz4t_encode_row is the serial one, the host
-// build's reference for the lanes' body (lz4t_host_encode_serial, and
-// lz4t_host_encode_wide_serial with K6b's value table and emit); no
-// kernel runs it. lz4t_encode_row_lanes is K2a's, K2b's and K6b's: one warp
+// lz4t_encode_row_lanes gives these bytes for K2a, K2b and K6b: one warp
 // parses and hands each sequence to a sink, K2a's and K2b's a stored list
 // (lz4t_seq_store) that lz4t_seq_emit writes, K6b's a ring in shared
 // memory that emit warps write from while the parse goes on
-// (lz4_encode_wide.cuh).
+// (lz4_encode_wide.cuh). The plain version, encode_row_plain
+// (plz4_tpu_torch/ops/encode.py), is the serial scan over Python bytes,
+// one attempt at a time; the CPU tests hold the host build of the lanes'
+// body to it.
 #pragma once
 
 #include "lz4_common.cuh"
@@ -135,129 +135,6 @@ LZ4T_HD int lz4t_emit_sequence(const uint8_t* c, uint8_t* o, int OT, int op,
   }
   o[tok] = (uint8_t)(lz4t_min(lit, 15) << 4);
   return q;
-}
-
-LZ4T_HD void lz4t_put(uint8_t* o, int OT, int p, int v) {
-  o[lz4t_min(p, OT - 1)] = (uint8_t)v;
-}
-
-LZ4T_HD int lz4t_emit_len_ext_clipped(uint8_t* o, int OT, int p, int v) {
-  for (; v >= 255; v -= 255) lz4t_put(o, OT, p++, 255);
-  lz4t_put(o, OT, p++, v);
-  return p;
-}
-
-// K6b's emit (see the file comment): the sequence of lz4t_emit_sequence
-// without the room guard, every write clipped at OT - 1. The literals move
-// 16 bytes at a time, loads before stores, since the wide kernel's row and
-// output live in device memory.
-LZ4T_HD int lz4t_emit_sequence_clipped(const uint8_t* c, uint8_t* o, int OT,
-                                       int op, int anchor, int ip, int mpos,
-                                       int mlen) {
-  const int lit = ip - anchor;
-  int q = op + 1;
-  if (lit >= 15) q = lz4t_emit_len_ext_clipped(o, OT, q, lit - 15);
-  for (int i = 0; i < lit; i += 16) {
-    uint8_t t[16];
-#pragma unroll
-    for (int j = 0; j < 16; j++) t[j] = i + j < lit ? c[anchor + i + j] : 0;
-#pragma unroll
-    for (int j = 0; j < 16; j++)
-      if (i + j < lit) lz4t_put(o, OT, q + i + j, t[j]);
-  }
-  q += lit;
-  int tok = lz4t_min(lit, 15) << 4;
-  if (mlen > 0) {
-    const int off = ip - mpos;
-    lz4t_put(o, OT, q, off & 255);
-    lz4t_put(o, OT, q + 1, off >> 8);
-    q += 2;
-    const int mv = mlen - 4;
-    if (mv >= 15) q = lz4t_emit_len_ext_clipped(o, OT, q, mv - 15);
-    tok |= lz4t_min(mv, 15);
-  }
-  lz4t_put(o, OT, op, tok);
-  return q;
-}
-
-template <bool kGuard>
-LZ4T_HD int lz4t_emit(const uint8_t* c, uint8_t* o, int OT, int op,
-                      int anchor, int ip, int mpos, int mlen) {
-  if constexpr (kGuard)
-    return lz4t_emit_sequence(c, o, OT, op, anchor, ip, mpos, mlen);
-  else
-    return lz4t_emit_sequence_clipped(c, o, OT, op, anchor, ip, mpos, mlen);
-}
-
-// c: the row, DT = base + N + 8 bytes (n block bytes at base, zero after
-// the block's N); o: OT = CAP output bytes; tab (and vtab when kVtab):
-// 2^14 entries, zeroed and then preloaded with the window by the caller.
-template <bool kVtab, bool kGuard = true>
-LZ4T_HD void lz4t_encode_row(const uint8_t* c, int DT, int base, int first,
-                             int n, uint8_t* o, int OT, uint32_t* tab,
-                             uint32_t* vtab, int* total_out, int* ok_out) {
-  const int end = base + n;
-  const int mflimit = end - 12;
-  const int matchlimit = end - 5;
-  const int out_limit = OT - 16;
-  const int clip = DT - 4;
-  int ip = base, anchor = base, op = 0;
-  int overflow = n < 0;
-  while (ip <= mflimit && !overflow) {
-    // search: the next position whose hash slot holds a valid candidate
-    int sip = ip, cnt = 0, found = 0, cand = 0;
-    uint32_t u = lz4t_rd32(c, lz4t_min(sip, clip));
-    while (!found && sip <= mflimit) {
-      const uint32_t h = lz4t_hash(u);
-      const int cd = (int)tab[h] - 1;
-      const int live = cd >= first;
-      uint32_t cval = 0;
-      if (kVtab) {
-        cval = vtab[h];
-        vtab[h] = u;
-      } else if (live) {
-        cval = lz4t_rd32(c, cd);
-      }
-      tab[h] = (uint32_t)(sip + 1);
-      found = live && sip - cd <= LZ4T_MAX_DISTANCE && cval == u;
-      cand = cd;
-      if (!found) {
-        sip += 1 + (cnt >> LZ4T_SKIP_STRENGTH);
-        u = lz4t_rd32(c, lz4t_min(sip, clip));
-      }
-      cnt++;
-    }
-    if (!found) {
-      ip = sip;
-      continue;
-    }
-    int mip = sip, mpos = cand, back = 0;
-    while (mip > anchor && mpos > first && c[mip - 1] == c[mpos - 1]) {
-      mip--;
-      mpos--;
-      back++;
-    }
-    int mlen = 4 + back;
-    while (mip + mlen < matchlimit && c[mip + mlen] == c[mpos + mlen]) mlen++;
-    const int op2 =
-        lz4t_emit<kGuard>(c, o, OT, op, anchor, mip, mpos, mlen);
-    const int nip = mip + mlen;
-    const uint32_t u2 = lz4t_rd32(c, lz4t_min(nip - 2, clip));
-    const uint32_t h2 = lz4t_hash(u2);
-    if (kVtab) vtab[h2] = u2;
-    tab[h2] = (uint32_t)(nip - 1);
-    ip = nip;
-    anchor = nip;
-    op = op2;
-    overflow = op2 > out_limit;
-  }
-  const int rest = end - anchor;
-  if (overflow || op + rest + rest / 255 + 16 > OT)
-    op = OT;
-  else
-    op = lz4t_emit<kGuard>(c, o, OT, op, anchor, end, 0, 0);
-  *total_out = op;
-  *ok_out = (op < n) && !overflow;
 }
 
 // ---------------------------------------------------------------------------
@@ -358,17 +235,17 @@ LZ4T_HD int lz4t_fwd_words(const uint32_t* u, const uint32_t* x, int lim) {
 }
 
 // The greedy parse of one row by the 32 lanes of a warp (K2a, K2b, K6b):
-// the bytes of lz4t_encode_row<kVtab, kGuard>. w is the row as u32 words,
+// the bytes the file comment sets out. w is the row as u32 words,
 // DT = base + N + 8 bytes plus the word after them (n block bytes at base,
 // zero after the block's N); OT = CAP output bytes; tab: the 2^14-entry
 // position table, zeroed and preloaded with the window; own: 2^14 bytes of
 // scratch (any contents). The sink gets each sequence k that the emit
 // writes as sink(k, op, mip, mlen, mpos), in order, op the output position
-// where lz4t_emit<kGuard> writes it, the final literals last as (op, end,
-// 0, end), from lane 0 (from every lane where Sink::kAllLanes). Returns
-// their count.
+// where the emit writes it, the final literals last as (op, end, 0, end),
+// from lane 0 (from every lane where Sink::kAllLanes). Returns their
+// count.
 //
-// Why the lanes give the serial parse's bytes: positions enter the table
+// Why the lanes give the serial scan's bytes: positions enter the table
 // exactly once each and in increasing order. The window preload inserts
 // first, first + wstride, ... below base; a search inserts each position
 // it scans; after a match only nip - 2 is inserted, where nip - 2 >= sip +
@@ -390,7 +267,7 @@ LZ4T_HD int lz4t_fwd_words(const uint32_t* u, const uint32_t* x, int lim) {
 // them when it reaches attempt k, so k's candidate is the newest lower
 // lane of the step in its bucket (__match_any_sync on the hash, when a
 // byte table shows two live lanes in one bucket), else the slot as the
-// step found it. Validity is lz4t_encode_row's (cd >= first,
+// step found it. Validity is the serial scan's (cd >= first,
 // sip - cd <= 65535, the word at cd equals the word at sip), and the first
 // valid lane (a ballot) is the serial scan's stop, with the same
 // candidate. The step inserts lanes 0 .. f, f that lane, or every live
@@ -407,11 +284,11 @@ LZ4T_HD int lz4t_fwd_words(const uint32_t* u, const uint32_t* x, int lim) {
 // parse emits nothing: it keeps the output position op by the emit's
 // arithmetic (the room guard, overflow and the final literals' two guards)
 // and hands each sequence with its op to the sink. kGuard = false keeps
-// op as lz4t_emit_sequence_clipped advances it (no room guard: every
-// sequence is handed over, op grows by its bytes); kGuard = true as
+// op as K6b's clipped emit advances it (no room guard: every sequence is
+// handed over, op grows by its bytes); kGuard = true as
 // lz4t_emit_sequence (a refused sequence is not handed over and sets op =
-// OT). Words come from the u32-aligned
-// row by aligned loads and funnel shifts: a position at most mflimit, or a
+// OT). Words come from the u32-aligned row by aligned loads and funnel
+// shifts: a position at most mflimit, or a
 // stored one (at most nip - 2 <= end - 7, or below base), reads words
 // inside the row or the one word after it, which the shift drops; a lane
 // past mflimit, whose reads decide nothing, reads at DT - 12 at most.

@@ -21,7 +21,7 @@
 //     there if it has one, else stop. hi is the last probed position + 1;
 //   * backward extension after the lazy loop (mlen grows by the same);
 //   * after the emit, positions [hi, min(nip, mflimit + 1)) are inserted;
-//   * emit, room guard, overflow and ok exactly as lz4t_encode_row.
+//   * emit, room guard, overflow and ok exactly as K2a's (lz4_encode.cuh).
 //
 // The chain is a pure function of the row, so it is built before the
 // parse and the parse inserts nothing. The parse inserts every position of

@@ -21,15 +21,17 @@
 //   * backward extension while mip > anchor, mpos > first and the bytes
 //     agree, forward extension from 4 + back up to matchlimit = end - 5;
 //   * after each match only position nip - 2 is inserted (with the shift);
-//   * emit, room guard, overflow and ok exactly as lz4t_encode_row; with
-//     kGuard = false the emit of the packed-word kernel _encode_kernel in mid
-//     mode (K6b: depth 2 only, no room guard, writes clipped at OT - 1).
+//   * emit, room guard, overflow and ok exactly as K2a's (lz4_encode.cuh);
+//     with kGuard = false the emit of the packed-word kernel _encode_kernel
+//     in mid mode (K6b: depth 2 only, no room guard, writes clipped at
+//     OT - 1).
 //
 // K2c, K2d and K6b run the parse on the 32 lanes of one warp
-// (lz4t_encode_mid_row_lanes); the serial body (lz4t_encode_mid_row) is
-// the host build's reference for it (lz4t_host_encode_mid_serial, and
-// lz4t_host_encode_wide_serial at <2, false). The lanes' body gives the
-// serial one's bytes because, in mid mode, positions enter the tables
+// (lz4t_encode_mid_row_lanes). The plain version, encode_row_mid_plain
+// (plz4_tpu_torch/ops/encode_mid.py), is the serial scan over Python
+// bytes, one position at a time; the CPU tests hold the host build of the
+// lanes' body to it. The lanes' body gives the serial scan's bytes
+// because, in mid mode, positions enter the tables
 // exactly once each and in increasing order: the window preload inserts
 // first, first + wstride, ... below base; the scan inserts each scanned
 // sip before it scores it; after a match only nip - 2 is inserted, where
@@ -45,7 +47,7 @@
 // that share its bucket (__match_any_sync on the hash), newest first, and
 // then its slot's entries as they stood at the step's start, kDepth in
 // all. Lane j of position k takes entry j of that list and scores it by
-// lz4t_mid_score's rules; the position's best is its highest score, a tie
+// the rules above; the position's best is its highest score, a tie
 // going to the lowest j (the newer candidate), and the first position with
 // a valid entry (a ballot) is the sip the serial scan stops at, with the
 // same candidate. The step inserts positions 0 .. f, f that position, or
@@ -62,7 +64,7 @@
 // taking the ballot's first mismatch, matchlimit or anchor / first: the
 // serial loops' lengths. The parse emits nothing: it keeps the output
 // position op by the emit's arithmetic (room guard, overflow and the
-// final literals as lz4t_encode_mid_row<kDepth, kGuard>) and hands each
+// final literals as set out above) and hands each
 // sequence with its op to a sink: K2c and K2d store them and
 // lz4t_seq_emit (lz4_encode.cuh) writes them afterwards, all at once,
 // wherever the row's total is below the overflow sentinel OT (ok or not:
@@ -110,107 +112,6 @@ LZ4T_HD void lz4t_mid_preload(const uint8_t* c, int base, int first,
                             (uint32_t)(p + 1));
 }
 
-// Score of candidate cd for the word u at sip: 0 when invalid, else 1 plus
-// the equal words at +4 and +8 (reads clipped at clip = DT - 4).
-LZ4T_HD int lz4t_mid_score(const uint8_t* c, int clip, int first, int sip,
-                           uint32_t u, int cd) {
-  if (cd < first || cd >= sip || sip - cd > LZ4T_MAX_DISTANCE ||
-      lz4t_rd32(c, lz4t_min(cd, clip)) != u)
-    return 0;
-  if (lz4t_rd32(c, lz4t_min(cd + 4, clip)) !=
-      lz4t_rd32(c, lz4t_min(sip + 4, clip)))
-    return 1;
-  if (lz4t_rd32(c, lz4t_min(cd + 8, clip)) !=
-      lz4t_rd32(c, lz4t_min(sip + 8, clip)))
-    return 2;
-  return 3;
-}
-
-// c: the row, DT = base + N + 8 bytes (n block bytes at base, zero after
-// the block's N); o: OT = CAP output bytes; t: kDepth 2^13-entry tables,
-// zeroed and then preloaded with the window by the caller.
-template <int kDepth, bool kGuard = true>
-LZ4T_HD void lz4t_encode_mid_row(const uint8_t* c, int DT, int base,
-                                 int first, int n, uint8_t* o, int OT,
-                                 const lz4t_mid_tabs& t, int* total_out,
-                                 int* ok_out) {
-  const int end = base + n;
-  const int mflimit = end - 12;
-  const int matchlimit = end - 5;
-  const int out_limit = OT - 16;
-  const int clip = DT - 4;
-  int ip = base, anchor = base, op = 0;
-  int overflow = n < 0;
-  while (ip <= mflimit && !overflow) {
-    // search: the next position with a valid candidate (sip <= mflimit, so
-    // no read of the scan clips)
-    int sip = ip, found = 0, cand = 0;
-    while (!found && sip <= mflimit) {
-      const uint32_t u = lz4t_rd32(c, sip);
-      const uint32_t h = lz4t_hash_mid(u);
-      const int ca = (int)t.t0[h] - 1;
-      const int cb = (int)t.t1[h] - 1;
-      int cc = -1, cd = -1;
-      if (kDepth == 4) {
-        cc = (int)t.t2[h] - 1;
-        cd = (int)t.t3[h] - 1;
-      }
-      lz4t_mid_insert<kDepth>(t, h, (uint32_t)(sip + 1));
-      const int la = lz4t_mid_score(c, clip, first, sip, u, ca);
-      const int lb = lz4t_mid_score(c, clip, first, sip, u, cb);
-      int best = la, pick = ca;
-      if (lb > la) {
-        best = lb;
-        pick = cb;
-      }
-      if (kDepth == 4) {
-        const int lc = lz4t_mid_score(c, clip, first, sip, u, cc);
-        if (lc > best) {
-          best = lc;
-          pick = cc;
-        }
-        const int ld = lz4t_mid_score(c, clip, first, sip, u, cd);
-        if (ld > best) {
-          best = ld;
-          pick = cd;
-        }
-      }
-      found = best > 0;
-      cand = pick;
-      if (!found) sip++;
-    }
-    if (!found) {
-      ip = sip;
-      continue;
-    }
-    int mip = sip, mpos = cand, back = 0;
-    while (mip > anchor && mpos > first && c[mip - 1] == c[mpos - 1]) {
-      mip--;
-      mpos--;
-      back++;
-    }
-    int mlen = 4 + back;
-    while (mip + mlen < matchlimit && c[mip + mlen] == c[mpos + mlen]) mlen++;
-    const int op2 =
-        lz4t_emit<kGuard>(c, o, OT, op, anchor, mip, mpos, mlen);
-    const int nip = mip + mlen;
-    lz4t_mid_insert<kDepth>(
-        t, lz4t_hash_mid(lz4t_rd32(c, lz4t_min(nip - 2, clip))),
-        (uint32_t)(nip - 1));
-    ip = nip;
-    anchor = nip;
-    op = op2;
-    overflow = op2 > out_limit;
-  }
-  const int rest = end - anchor;
-  if (overflow || op + rest + rest / 255 + 16 > OT)
-    op = OT;
-  else
-    op = lz4t_emit<kGuard>(c, o, OT, op, anchor, end, 0, 0);
-  *total_out = op;
-  *ok_out = (op < n) && !overflow;
-}
-
 // ---------------------------------------------------------------------------
 // the parse on the 32 lanes of a warp (K2c, K2d; see the file comment)
 // ---------------------------------------------------------------------------
@@ -237,11 +138,12 @@ LZ4T_HD void lz4t_mid_put(const lz4t_mid_tabs& t, uint32_t h, int p,
   t.t0[h] = (uint32_t)(p + 1);
 }
 
-// lz4t_mid_score of candidate cd for the words u at sip, from one read of
-// the three words x at cd. A live lane's words and a valid candidate's lie
-// below the clip (cd < sip <= mflimit = end - 12 and clip >= end + 4), so
-// these are lz4t_mid_score's clipped reads; other reads are moved below
-// the clip and decide nothing.
+// The score of candidate cd for the words u at sip (0 when invalid, else 1
+// plus the equal words at +4 and +8, the second only if the first agrees),
+// from one read of the three words x at cd. A live lane's words and a
+// valid candidate's lie below the clip (cd < sip <= mflimit = end - 12 and
+// clip >= end + 4), so no read that decides a score clips; other reads are
+// moved below the clip and decide nothing.
 LZ4T_HD int lz4t_mid_score3(const uint32_t* w, int clip, int first, int sip,
                             const uint32_t* u, int cd, uint32_t* x) {
   lz4t_rd32w3(w, lz4t_min(lz4t_max(cd, 0), clip - 8), x);
@@ -262,9 +164,8 @@ LZ4T_HD uint32_t lz4t_mid_key(uint32_t u, int live, int lane) {
 // 2^13-entry tables, zeroed and preloaded with the window. The sink gets
 // each sequence k that the emit writes (kGuard = false: every one) as
 // sink(k, op, mip, mlen, mpos), in order, op the output position where
-// lz4t_emit<kGuard> writes it, the final literals last as (op, end, 0,
-// end), from lane 0 (from every lane where Sink::kAllLanes). Returns their
-// count.
+// the emit writes it, the final literals last as (op, end, 0, end), from
+// lane 0 (from every lane where Sink::kAllLanes). Returns their count.
 template <int kDepth, bool kGuard = true, class Sink>
 LZ4T_HD int lz4t_encode_mid_row_lanes(const uint32_t* w, int DT, int base,
                                       int first, int n, int OT,

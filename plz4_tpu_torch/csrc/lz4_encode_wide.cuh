@@ -19,9 +19,10 @@
 // (lz4_host.cpp) runs the same parse, sink and emit, writing the oldest
 // batch when the parse finds the ring full.
 //
-// Where the bytes agree with the serial emit: sequences tile the output,
-// [op, op + lz4t_seq_bytes) each, so the order of the writes changes no
-// byte below the clip. Where ok holds, total < n <= OT - 1 and no write
+// Where the bytes agree with an emit that writes the sequences one after
+// another (the Pallas kernel's, the plain version's): sequences tile the
+// output, [op, op + lz4t_seq_bytes) each, so the order of the writes
+// changes no byte below the clip. Where ok holds, total < n <= OT - 1 and no write
 // was clipped; elsewhere only the clipped byte OT - 1 may differ, which no
 // caller reads (total >= OT there).
 #pragma once
@@ -34,10 +35,10 @@
 // and an anchor per slot
 #define LZ4T_WRING_SMEM (LZ4T_WRING_BATCHES * (32 * 16 + 8 + 8 + 4 + 4))
 
-// One sequence through the clipped emit (lz4t_emit_sequence_clipped's
-// bytes), written by the 32 lanes of a warp, lane i taking output bytes
-// op + i, op + i + 32, ...: its literals c[anchor, mip), then a match of
-// mlen at offset off (mlen == 0: final literals).
+// One sequence through the clipped emit (lz4t_emit_sequence's bytes, every
+// write clipped at OT - 1), written by the 32 lanes of a warp, lane i
+// taking output bytes op + i, op + i + 32, ...: its literals c[anchor,
+// mip), then a match of mlen at offset off (mlen == 0: final literals).
 LZ4T_HD void lz4t_wseq_lanes(const uint8_t* c, uint8_t* o, int OT,
                              int anchor, int op, int mip, int mlen, int off) {
   const int lit = mip - anchor;

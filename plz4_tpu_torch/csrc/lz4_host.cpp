@@ -1,18 +1,16 @@
 // Host build of the CUDA kernels' row bodies (lz4_encode.cuh,
-// lz4_encode_mid.cuh, lz4_encode_deep.cuh, lz4_decode.cuh,
-// lz4_decode_window.cuh, lz4_decode_ring.cuh, lz4_decode_wide.cuh,
-// xxh32.cuh), compiled with g++ so that the CPU tests can run the kernels'
-// own logic on machines without a GPU. Same layouts and results as the
-// kernels' launchers. The bodies that warps run together (K1, K2a-K2d, K3,
-// K4, K5, K6a, K6b) run their lanes' steps as loops over lanes 0-31 here
-// (lz4_lanes.cuh).
+// lz4_encode_mid.cuh, lz4_encode_deep.cuh, lz4_encode_wide.cuh,
+// lz4_decode_window.cuh, lz4_decode_ring.cuh, xxh32.cuh), compiled with g++
+// so that the CPU tests can run the kernels' own logic on machines without
+// a GPU and hold it to the plain versions and to the Pallas kernels. Same
+// layouts and results as the kernels' launchers. The bodies that warps run
+// together (K1, K2a-K2d, K3, K4, K5, K6a, K6b) run their lanes' steps as
+// loops over lanes 0-31 here (lz4_lanes.cuh).
 #include <string.h>
 
 #include <vector>
 
-#include "lz4_decode.cuh"
 #include "lz4_decode_ring.cuh"
-#include "lz4_decode_wide.cuh"
 #include "lz4_decode_window.cuh"
 #include "lz4_encode.cuh"
 #include "lz4_encode_deep.cuh"
@@ -38,13 +36,11 @@ static int stage_window_row(std::vector<uint8_t>& row, const uint8_t* data,
 
 // K2a (D = 0, lz4_encode.cu) and K2b (lz4_encode_window.cu): the lanes'
 // parse on a u32 copy of the row with one word after it, then the emit of
-// its sequences wherever total < CAP; serial runs the serial body
-// (lz4t_encode_row, K6b's parse with the room guard) instead.
+// its sequences wherever total < CAP.
 static void encode_greedy(const uint8_t* data, const int32_t* lens,
                           const uint8_t* win, const int32_t* wlens,
                           uint8_t* out, int32_t* totals, uint8_t* ok, int R,
-                          int N, int D, int K, int wstride, int CAP,
-                          int serial) {
+                          int N, int D, int K, int wstride, int CAP) {
   const int DT = D + N + 8;
   std::vector<uint32_t> tab(1 << LZ4T_HASH_LOG), w(DT / 4 + 1);
   std::vector<uint8_t> own(1 << LZ4T_HASH_LOG);
@@ -55,19 +51,14 @@ static void encode_greedy(const uint8_t* data, const int32_t* lens,
     const int first = stage_window_row(row, data, win, wlens, r, N, D, K, D);
     lz4t_window_preload(row.data(), D, first, wstride, tab.data());
     int total, okv;
-    uint8_t* o = out + (size_t)r * CAP;
-    if (serial) {
-      lz4t_encode_row<false>(row.data(), DT, D, first, lens[r], o, CAP,
-                             tab.data(), nullptr, &total, &okv);
-    } else {
-      memcpy(w.data(), row.data(), DT);
-      lz4t_seq_store sink = {seq.data()};
-      const int k = lz4t_encode_row_lanes(w.data(), DT, D, first, lens[r],
-                                          CAP, tab.data(), own.data(), sink,
-                                          &total, &okv);
-      if (total < CAP)
-        lz4t_seq_emit(row.data(), o, CAP, D, seq.data(), k, 0, 1);
-    }
+    memcpy(w.data(), row.data(), DT);
+    lz4t_seq_store sink = {seq.data()};
+    const int k = lz4t_encode_row_lanes(w.data(), DT, D, first, lens[r], CAP,
+                                        tab.data(), own.data(), sink, &total,
+                                        &okv);
+    if (total < CAP)
+      lz4t_seq_emit(row.data(), out + (size_t)r * CAP, CAP, D, seq.data(), k,
+                    0, 1);
     totals[r] = total;
     ok[r] = okv != 0;
   }
@@ -78,7 +69,7 @@ extern "C" void lz4t_host_encode(const uint8_t* data, const int32_t* lens,
                                  uint8_t* out, int32_t* totals, uint8_t* ok,
                                  int B, int N, int CAP) {
   encode_greedy(data, lens, nullptr, nullptr, out, totals, ok, B, N, 0, 1, 1,
-                CAP, 0);
+                CAP);
 }
 
 // K2b: lz4_encode_window.cu
@@ -90,42 +81,20 @@ extern "C" void lz4t_host_encode_window(const uint8_t* data,
                                         int N, int D, int K, int wstride,
                                         int CAP) {
   encode_greedy(data, lens, win, wlens, out, totals, ok, R, N, D, K, wstride,
-                CAP, 0);
-}
-
-// The rows of lz4t_host_encode_window (D = 0: lz4t_host_encode's) through
-// the serial body, for the test that holds the two bodies to each other.
-extern "C" void lz4t_host_encode_serial(const uint8_t* data,
-                                        const int32_t* lens,
-                                        const uint8_t* win,
-                                        const int32_t* wlens, uint8_t* out,
-                                        int32_t* totals, uint8_t* ok, int R,
-                                        int N, int D, int K, int wstride,
-                                        int CAP) {
-  encode_greedy(data, lens, win, wlens, out, totals, ok, R, N, D, K, wstride,
-                CAP, 1);
+                CAP);
 }
 
 // K2c (depth 2) and K2d (depth 4): lz4_encode_mid.cu, the lanes' parse on
 // a u32 copy of the row with one word after it, then the emit of its
-// sequences wherever total < CAP; serial (depth 2 only) runs the serial
-// body (K6b's, with K2c's emit) instead. D = 0 is a plain row.
+// sequences wherever total < CAP. D = 0 is a plain row.
 template <int kDepth>
 static void encode_mid_row(const std::vector<uint8_t>& row,
                            const std::vector<uint32_t>& w,
                            std::vector<int>& seq, int D, int first, int n,
                            int wstride, uint8_t* o, int CAP,
-                           const lz4t_mid_tabs& t, int serial, int* total,
-                           int* okv) {
+                           const lz4t_mid_tabs& t, int* total, int* okv) {
   const int DT = (int)row.size();
   lz4t_mid_preload<kDepth>(row.data(), D, first, wstride, t);
-  if constexpr (kDepth == 2) {
-    if (serial) {
-      lz4t_encode_mid_row<2>(row.data(), DT, D, first, n, o, CAP, t, total,
-                             okv);
-      return;
-    }
-  }
   lz4t_seq_store sink = {seq.data()};
   const int k = lz4t_encode_mid_row_lanes<kDepth>(w.data(), DT, D, first, n,
                                                   CAP, t, sink, total, okv);
@@ -135,7 +104,7 @@ static void encode_mid_row(const std::vector<uint8_t>& row,
 static void encode_mid(const uint8_t* data, const int32_t* lens,
                        const uint8_t* win, const int32_t* wlens, uint8_t* out,
                        int32_t* totals, uint8_t* ok, int R, int N, int D,
-                       int K, int wstride, int CAP, int depth4, int serial) {
+                       int K, int wstride, int CAP, int depth4) {
   const int T = 1 << LZ4T_MID_HASH_LOG;
   const int DT = D + N + 8;
   std::vector<uint32_t> tabs(4 * T), w(DT / 4 + 1);
@@ -151,10 +120,10 @@ static void encode_mid(const uint8_t* data, const int32_t* lens,
     uint8_t* o = out + (size_t)r * CAP;
     if (depth4)
       encode_mid_row<4>(row, w, seq, D, first, lens[r], wstride, o, CAP, t,
-                        0, &total, &okv);
+                        &total, &okv);
     else
       encode_mid_row<2>(row, w, seq, D, first, lens[r], wstride, o, CAP, t,
-                        serial, &total, &okv);
+                        &total, &okv);
     totals[r] = total;
     ok[r] = okv != 0;
   }
@@ -166,17 +135,7 @@ extern "C" void lz4t_host_encode_mid(const uint8_t* data, const int32_t* lens,
                                      uint8_t* ok, int R, int N, int D, int K,
                                      int wstride, int CAP, int depth4) {
   encode_mid(data, lens, win, wlens, out, totals, ok, R, N, D, K, wstride,
-             CAP, depth4, 0);
-}
-
-// The same rows at depth 2 through the serial body, for the test that
-// holds the two bodies to each other.
-extern "C" void lz4t_host_encode_mid_serial(
-    const uint8_t* data, const int32_t* lens, const uint8_t* win,
-    const int32_t* wlens, uint8_t* out, int32_t* totals, uint8_t* ok, int R,
-    int N, int D, int K, int wstride, int CAP) {
-  encode_mid(data, lens, win, wlens, out, totals, ok, R, N, D, K, wstride,
-             CAP, 0, 1);
+             CAP, depth4);
 }
 
 // K4's chain build (lz4t_deep_build) of row r into delta (Dc + N + 8
@@ -409,21 +368,6 @@ extern "C" void lz4t_host_decode(const uint8_t* comp, const int32_t* clens,
                    out + (size_t)b * out_cap, out_cap, n_out + b, ok + b);
 }
 
-// K1's serial body (lz4t_decode_row), the new body's reference; no card
-// path runs it
-extern "C" void lz4t_host_decode_serial(const uint8_t* comp,
-                                        const int32_t* clens, uint8_t* out,
-                                        int32_t* n_out, uint8_t* ok, int B,
-                                        int C, int out_cap) {
-  for (int b = 0; b < B; b++) {
-    int n, okv;
-    lz4t_decode_row(comp + (size_t)b * C, C, clens[b],
-                    out + (size_t)b * out_cap, out_cap, &n, &okv);
-    n_out[b] = n;
-    ok[b] = okv != 0;
-  }
-}
-
 // K3: lz4_decode_window.cu, lz4t_launch_dict
 extern "C" void lz4t_host_decode_dict(const uint8_t* comp,
                                       const int32_t* clens,
@@ -433,22 +377,6 @@ extern "C" void lz4t_host_decode_dict(const uint8_t* comp,
   for (int b = 0; b < B; b++)
     ring_row<false>(comp + (size_t)b * C, C, clens[b], dict, D, dlen,
                     out + (size_t)b * out_cap, out_cap, n_out + b, ok + b);
-}
-
-// K3's serial body (lz4t_decode_window_row, strict), the new body's
-// reference; no card path runs it
-extern "C" void lz4t_host_decode_dict_serial(
-    const uint8_t* comp, const int32_t* clens, const uint8_t* dict,
-    uint8_t* out, int32_t* n_out, uint8_t* ok, int B, int C, int D, int dlen,
-    int out_cap) {
-  for (int b = 0; b < B; b++) {
-    const int32_t meta[7] = {clens[b], dlen, 0, 0, 0, 0, out_cap};
-    int n, okv;
-    lz4t_decode_window_row(comp + (size_t)b * C, C, meta, dict, D,
-                           out + (size_t)b * out_cap, out_cap, &n, &okv);
-    n_out[b] = n;
-    ok[b] = okv != 0;
-  }
 }
 
 // K5's parsed sequences, as the parse kernel stores them
@@ -537,15 +465,13 @@ struct host_wring {
 // K6b: lz4_encode_wide.cu. Rows are [window D | block | 8 zero bytes]; the
 // window preload inserts every usable position in order. Each row is read
 // from a copy of exactly DT bytes and the one word after them that the
-// parse may read (zero), so a read past it shows under AddressSanitizer;
-// serial runs the serial bodies (lz4t_encode_row<true, false> with the
-// value table, lz4t_encode_mid_row<2, false>) instead of the lanes' parse
-// and the ring.
-static void encode_wide(const uint8_t* rows, const int32_t* lens,
-                        const int32_t* wlens, uint8_t* out, int32_t* totals,
-                        uint8_t* ok, int R, int DT, int D, int CAP, int mid,
-                        int serial) {
-  std::vector<uint32_t> tabs(2 << LZ4T_HASH_LOG);
+// parse may read (zero), so a read past it shows under AddressSanitizer.
+// The tables: greedy's 2^14 positions, or the chain's two tables of 2^13.
+extern "C" void lz4t_host_encode_wide(const uint8_t* rows, const int32_t* lens,
+                                      const int32_t* wlens, uint8_t* out,
+                                      int32_t* totals, uint8_t* ok, int R,
+                                      int DT, int D, int CAP, int mid) {
+  std::vector<uint32_t> tabs(1 << LZ4T_HASH_LOG);
   std::vector<uint8_t> own(1 << LZ4T_HASH_LOG);
   for (int r = 0; r < R; r++) {
     memset(tabs.data(), 0, tabs.size() * 4);
@@ -562,45 +488,18 @@ static void encode_wide(const uint8_t* rows, const int32_t* lens,
       lz4t_mid_preload<2>(c, D, first, 1, t);
     else
       lz4t_window_preload(c, D, first, 1, tab);
-    if (serial && mid) {
-      lz4t_encode_mid_row<2, false>(c, DT, D, first, lens[r], o, CAP, t,
-                                    &total, &okv);
-    } else if (serial) {
-      uint32_t* vtab = tab + (1 << LZ4T_HASH_LOG);
-      for (int h = 0; h < (1 << LZ4T_HASH_LOG); h++)
-        vtab[h] = tab[h] ? lz4t_rd32(c, (int)tab[h] - 1) : 0;
-      lz4t_encode_row<true, false>(c, DT, D, first, lens[r], o, CAP, tab,
-                                   vtab, &total, &okv);
-    } else {
-      host_wring ring = {c, o, CAP, D};
-      const int k =
-          mid ? lz4t_encode_mid_row_lanes<2, false>(w.data(), DT, D, first,
-                                                    lens[r], CAP, t, ring,
-                                                    &total, &okv)
-              : lz4t_encode_row_lanes<false>(w.data(), DT, D, first, lens[r],
-                                             CAP, tab, own.data(), ring,
-                                             &total, &okv);
-      ring.finish(k);
-    }
+    host_wring ring = {c, o, CAP, D};
+    const int k =
+        mid ? lz4t_encode_mid_row_lanes<2, false>(w.data(), DT, D, first,
+                                                  lens[r], CAP, t, ring,
+                                                  &total, &okv)
+            : lz4t_encode_row_lanes<false>(w.data(), DT, D, first, lens[r],
+                                           CAP, tab, own.data(), ring, &total,
+                                           &okv);
+    ring.finish(k);
     totals[r] = total;
     ok[r] = okv != 0;
   }
-}
-
-extern "C" void lz4t_host_encode_wide(const uint8_t* rows, const int32_t* lens,
-                                      const int32_t* wlens, uint8_t* out,
-                                      int32_t* totals, uint8_t* ok, int R,
-                                      int DT, int D, int CAP, int mid) {
-  encode_wide(rows, lens, wlens, out, totals, ok, R, DT, D, CAP, mid, 0);
-}
-
-// The same rows through the serial bodies: the reference the lanes' path
-// is held to; no card path runs it
-extern "C" void lz4t_host_encode_wide_serial(
-    const uint8_t* rows, const int32_t* lens, const int32_t* wlens,
-    uint8_t* out, int32_t* totals, uint8_t* ok, int R, int DT, int D, int CAP,
-    int mid) {
-  encode_wide(rows, lens, wlens, out, totals, ok, R, DT, D, CAP, mid, 1);
 }
 
 // one row of K6a through the ring, read in place through row
@@ -640,22 +539,6 @@ extern "C" void lz4t_host_decode_wide(const uint8_t* comp,
       wide_ring_row(lz4t_dev_row{c.data(), C}, clens[b], o, out_cap,
                     n_out + b, ok + b);
     }
-  }
-}
-
-// K6a's serial body (lz4t_decode_wide_row), the new body's reference; no
-// card path runs it
-extern "C" void lz4t_host_decode_wide_serial(const uint8_t* comp,
-                                             const int32_t* clens,
-                                             uint8_t* out, int32_t* n_out,
-                                             uint8_t* ok, int B, int C,
-                                             int out_cap) {
-  for (int b = 0; b < B; b++) {
-    int n, okv;
-    lz4t_decode_wide_row(comp + (size_t)b * C, C, clens[b],
-                         out + (size_t)b * out_cap, out_cap, &n, &okv);
-    n_out[b] = n;
-    ok[b] = okv != 0;
   }
 }
 

@@ -313,12 +313,12 @@ class FrameReader:
         h = self._hdr
         serial = (not h.block_independent) or self._parallel == 0
         if serial:
-            return self._decode_serial()
+            return self._decode_in_order()
         if self._use_device:
             return self._decode_device()
         return self._decode_threaded()
 
-    def _decode_serial(self) -> bytes | None:
+    def _decode_in_order(self) -> bytes | None:
         blk = self._read_stored()
         if blk is None:
             return None

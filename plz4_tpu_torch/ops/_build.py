@@ -43,21 +43,15 @@ KERNELS = {
 HOST_FNS = {
     "lz4t_host_encode": (5, 3),
     "lz4t_host_encode_window": (7, 6),
-    "lz4t_host_encode_serial": (7, 6),
     "lz4t_host_encode_mid": (7, 7),
-    "lz4t_host_encode_mid_serial": (7, 6),
     "lz4t_host_encode_deep": (7, 8),
     "lz4t_host_encode_deep_plain": (5, 5),
     "lz4t_host_deep_chain": (5, 6),
     "lz4t_host_decode": (5, 3),
-    "lz4t_host_decode_serial": (5, 3),
     "lz4t_host_decode_dict": (6, 5),
-    "lz4t_host_decode_dict_serial": (6, 5),
     "lz4t_host_decode_records": (6, 4),
     "lz4t_host_encode_wide": (6, 5),
-    "lz4t_host_encode_wide_serial": (6, 5),
     "lz4t_host_decode_wide": (5, 3),
-    "lz4t_host_decode_wide_serial": (5, 3),
     "lz4t_host_xxh32": (3, 3),
 }
 

@@ -310,7 +310,8 @@ def decode_batch_plain(comp: torch.Tensor, clens: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# plain version of K6a: the packed-word kernel's loop (csrc/lz4_decode_wide.cuh)
+# plain version of K6a: the packed-word kernel's loop (its rules are in
+# csrc/lz4_decode_ring.cuh)
 # ---------------------------------------------------------------------------
 
 def decode_row_wide_plain(c: bytes, clen: int, out_cap: int):

@@ -240,15 +240,16 @@ def _common(c: bytes, a: int, b: int, limit: int) -> int:
 
 
 def encode_row_plain(row: bytes, n: int, N: int, window: bytes = b"",
-                     wlen: int = 0, wstride: int = 1, guard: bool = True
-                     ) -> tuple[bytes, int, bool]:
+                     wlen: int = 0, wstride: int = 1, guard: bool = True,
+                     cap: int | None = None) -> tuple[bytes, int, bool]:
     """One row of width N (n data bytes) after a right-aligned window of
     len(window) bytes, the last wlen of them usable: (stream, total, ok).
     The stream is meaningful where ok holds. The window preload keeps the
     largest of the positions that share a slot, which is what inserting
     them in order leaves (csrc/lz4_encode.cuh). guard=False is K6b's emit
-    (_emit)."""
-    OT = out_width(N)
+    (_emit). cap: the output width, out_width(N) unless a test asks for
+    another."""
+    OT = out_width(N) if cap is None else cap
     base = len(window)
     first = base - min(max(wlen, 0), base)
     c = window + row[:N] + bytes(8)
@@ -266,9 +267,8 @@ def encode_row_plain(row: bytes, n: int, N: int, window: bytes = b"",
     overflow = n < 0
     while ip <= mflimit and not overflow:
         sip, cnt, found, cand = ip, 0, False, 0
-        while not found and sip <= mflimit:
-            p = min(sip, clip)
-            u, h = words[p], hashes[p]
+        while not found and sip <= mflimit:  # sip is below the clip
+            u, h = words[sip], hashes[sip]
             cd = tab[h] - 1
             # the stored word of the slot is the word at cd (see
             # csrc/lz4_encode.cuh)
@@ -298,12 +298,13 @@ def encode_row_plain(row: bytes, n: int, N: int, window: bytes = b"",
 def _finish(c: bytes, o: bytearray, OT: int, anchor: int, end: int, n: int,
             overflow: bool, guard: bool = True) -> tuple[bytes, int, bool]:
     """Append the final literals [anchor, end) after a parse: (stream,
-    total, ok). An overflow, or no room for the literals, gives total OT and
-    ok False, as the kernels do."""
+    total, ok). An overflow, or no room for the literals, gives total OT;
+    ok is then OT < n and no overflow, as the kernels compute it, which is
+    False at out_width(N) (> n)."""
     rest = end - anchor
     if overflow or len(o) + rest + rest // 255 + 16 > OT \
             or not _emit(c, o, OT, anchor, end, 0, 0, guard):
-        return b"", OT, False
+        return b"", OT, OT < n and not overflow
     return bytes(o), len(o), len(o) < n
 
 

@@ -121,13 +121,14 @@ def encode_batch_mid_window(data: torch.Tensor, lens: torch.Tensor,
 
 def encode_row_mid_plain(row: bytes, n: int, N: int, window: bytes = b"",
                          wlen: int = 0, wstride: int = 1,
-                         depth4: bool = False, guard: bool = True
-                         ) -> tuple[bytes, int, bool]:
+                         depth4: bool = False, guard: bool = True,
+                         cap: int | None = None) -> tuple[bytes, int, bool]:
     """One row of width N (n data bytes) after a right-aligned window of
     len(window) bytes, the last wlen of them usable: (stream, total, ok).
     The stream is meaningful where ok holds (csrc/lz4_encode_mid.cuh).
-    guard=False is K6b's emit (encode._emit)."""
-    OT = out_width(N)
+    guard=False is K6b's emit (encode._emit). cap: the output width,
+    out_width(N) unless a test asks for another."""
+    OT = out_width(N) if cap is None else cap
     base = len(window)
     first = base - min(max(wlen, 0), base)
     c = window + row[:N] + bytes(8)
@@ -146,16 +147,6 @@ def encode_row_mid_plain(row: bytes, n: int, N: int, window: bytes = b"",
     for p in range(first, base, wstride):
         insert(hashes[p], p + 1)
 
-    def score(cd: int, sip: int, u: int) -> int:
-        if cd < first or cd >= sip or sip - cd > MAX_DISTANCE \
-                or words[min(cd, clip)] != u:
-            return 0
-        if words[min(cd + 4, clip)] != words[min(sip + 4, clip)]:
-            return 1
-        if words[min(cd + 8, clip)] != words[min(sip + 8, clip)]:
-            return 2
-        return 3
-
     end = base + n
     mflimit, matchlimit = end - 12, end - 5
     o = bytearray()
@@ -164,14 +155,22 @@ def encode_row_mid_plain(row: bytes, n: int, N: int, window: bytes = b"",
     while ip <= mflimit and not overflow:
         sip, found, cand = ip, False, 0
         while sip <= mflimit:
-            u, h = words[sip], hashes[sip]
-            cands = [v - 1 for v in slots[h]]
-            insert(h, sip + 1)
+            u, slot = words[sip], slots[hashes[sip]]
+            # score each candidate (newest first: a tie keeps the newer
+            # one): 0 when invalid, else 1 plus the equal words at +4 and
+            # +8; a valid one lies below sip <= mflimit, so no read clips
             best = 0
-            for cd in cands:  # newest first: a tie keeps the newer one
-                sc = score(cd, sip, u)
+            for v in slot:
+                cd = v - 1
+                if cd < first or cd >= sip or sip - cd > MAX_DISTANCE \
+                        or words[cd] != u:
+                    continue
+                sc = (1 if words[cd + 4] != words[sip + 4] else
+                      2 if words[cd + 8] != words[sip + 8] else 3)
                 if sc > best:
                     best, cand = sc, cd
+            slot.pop()
+            slot.insert(0, sip + 1)
             if best:
                 found = True
                 break

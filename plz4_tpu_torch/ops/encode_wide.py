@@ -78,13 +78,15 @@ def encode_batch_wide(data: torch.Tensor, lens: torch.Tensor,
 
 
 def encode_row_wide_plain(row: bytes, n: int, N: int, window: bytes = b"",
-                          wlen: int = 0, mid: bool = False
-                          ) -> tuple[bytes, int, bool]:
+                          wlen: int = 0, mid: bool = False,
+                          cap: int | None = None) -> tuple[bytes, int, bool]:
     """One row of width N (n data bytes) after a right-aligned window, the
-    last wlen of its bytes usable: (stream, total, ok), K6b's results."""
+    last wlen of its bytes usable: (stream, total, ok), K6b's results.
+    cap: the output width, out_width(N) unless a test asks for another."""
     if mid:
-        return encode_row_mid_plain(row, n, N, window, wlen, guard=False)
-    return encode_row_plain(row, n, N, window, wlen, guard=False)
+        return encode_row_mid_plain(row, n, N, window, wlen, guard=False,
+                                    cap=cap)
+    return encode_row_plain(row, n, N, window, wlen, guard=False, cap=cap)
 
 
 def encode_batch_wide_plain(data: torch.Tensor, lens: torch.Tensor,

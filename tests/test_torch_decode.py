@@ -141,8 +141,8 @@ def host_lib():
 
 @pytest.mark.parametrize("name", NAMES)
 def test_kernel_row_body_matches_pallas(name, host_lib):
-    """The CUDA kernel's row body (csrc/lz4_decode.cuh), built for the host
-    with g++, against the Pallas kernel."""
+    """The CUDA kernel's row body (csrc/lz4_decode_ring.cuh), built for the
+    host with g++, against the Pallas kernel."""
     rows, clens, ref, _ = _full()
     B = rows.shape[0]
     out = np.zeros((B, OUT_CAP), np.uint8)

@@ -10,8 +10,7 @@ corpus.decode_edge_batches: short offsets at and near a row's start, rows
 that wrap the ring four to eight times, rows whose clen exceeds their
 width, and streams that pass out_cap in a literal run or a match. The
 contract: the same ok and n_out per row and the same bytes [0, n_out). The
-host build is also held to the serial bodies it replaces (lz4t_decode_row,
-lz4t_decode_window_row, kept as host entries) on seeded random and damaged
+host build is also held to the plain versions on seeded random and damaged
 streams. tests/test_torch_gpu.py holds the kernels themselves to the plain
 versions on a GPU.
 """
@@ -65,19 +64,18 @@ def _pallas(kernel: str, name: str):
     return tuple(np.asarray(x) for x in ref)
 
 
-def _host(lib, kernel, rows, clens, cap, win, serial=False):
+def _host(lib, kernel, rows, clens, cap, win):
     B, C = rows.shape
     out = np.zeros((B, cap), np.uint8)
     n = np.zeros(B, np.int32)
     ok = np.zeros(B, np.uint8)
-    suffix = "_serial" if serial else ""
     if kernel == "K1":
-        getattr(lib, "lz4t_host_decode" + suffix)(
+        lib.lz4t_host_decode(
             rows.ctypes.data, clens.ctypes.data, out.ctypes.data,
             n.ctypes.data, ok.ctypes.data, B, C, cap)
     else:
         d = np.frombuffer(win, np.uint8).copy()
-        getattr(lib, "lz4t_host_decode_dict" + suffix)(
+        lib.lz4t_host_decode_dict(
             rows.ctypes.data, clens.ctypes.data, d.ctypes.data,
             out.ctypes.data, n.ctypes.data, ok.ctypes.data, B, C, len(d),
             len(d), cap)
@@ -236,7 +234,7 @@ def _random_streams(seed: int, n: int = 25) -> list[bytes]:
 @pytest.mark.parametrize("width", [(1024, 1024), (256, 2048), (4096, 512)])
 @pytest.mark.parametrize("seed", range(4))
 @pytest.mark.parametrize("kernel", KERNELS)
-def test_ring_body_matches_serial_body(kernel, seed, width, host_lib):
+def test_ring_body_matches_plain(kernel, seed, width, host_lib):
     """25 seeded streams per case, 300 per kernel, at widths where streams
     run past C (clipped or zero reads) and past out_cap."""
     C, cap = width
@@ -249,7 +247,7 @@ def test_ring_body_matches_serial_body(kernel, seed, width, host_lib):
     win = np.random.default_rng(seed).integers(
         0, 256, 512, dtype=np.uint8).tobytes()
     got = _host(host_lib, kernel, rows, clens, cap, win)
-    ref = _host(host_lib, kernel, rows, clens, cap, win, serial=True)
+    ref = _plain(kernel, rows, clens, cap, win)
     _assert_rows_same(ref, got, range(len(streams)))
 
 

@@ -4,9 +4,9 @@ JAX package's Pallas kernel in interpret mode.
 Byte-exact contract: the same ok and total per row, and the same stream
 bytes [0, total) where ok holds. Two implementations are held to the
 Pallas kernel: the plain version (what the port runs on CPU tensors) and
-the CUDA kernel's own row body built for the host with g++;
-tests/test_torch_gpu.py holds the CUDA kernel itself to the plain version
-on a GPU.
+the CUDA kernel's own row body built for the host with g++, which is also
+held to the plain version; tests/test_torch_gpu.py holds the CUDA kernel
+itself to the plain version on a GPU.
 """
 
 import functools
@@ -144,39 +144,26 @@ def test_encode_batch_rejects_bad_rows(shape, err):
                             torch.zeros((shape[0],), dtype=torch.int32))
 
 
-def _host_encode(lib, rows, lens, serial=False):
-    """K2a's row body built with g++: the lanes' body, or with serial the
-    serial body (lz4t_encode_row) on the same rows."""
-    B, width = rows.shape
-    CAP = encode.out_width(width)
+@functools.lru_cache(maxsize=None)
+def _lanes():
+    """K2a's lanes' body built with g++ on the cached batch."""
+    rows, lens, _, _ = _full()
+    B = rows.shape[0]
+    CAP = encode.out_width(N)
     out = np.zeros((B, CAP), np.uint8)
     tot = np.zeros(B, np.int32)
     ok = np.zeros(B, np.uint8)
-    if serial:
-        lib.lz4t_host_encode_serial(rows.ctypes.data, lens.ctypes.data, 0, 0,
-                                    out.ctypes.data, tot.ctypes.data,
-                                    ok.ctypes.data, B, width, 0, 1, 1, CAP)
-    else:
-        lib.lz4t_host_encode(rows.ctypes.data, lens.ctypes.data,
-                             out.ctypes.data, tot.ctypes.data, ok.ctypes.data,
-                             B, width, CAP)
+    _build.load_host().lz4t_host_encode(
+        rows.ctypes.data, lens.ctypes.data, out.ctypes.data, tot.ctypes.data,
+        ok.ctypes.data, B, N, CAP)
     return out, tot, ok
 
 
-@functools.lru_cache(maxsize=None)
-def _host_bodies():
-    """The lanes' and the serial body's results on the cached batch."""
-    rows, lens, _, _ = _full()
-    lib = _build.load_host()
-    return _host_encode(lib, rows, lens), _host_encode(lib, rows, lens,
-                                                       serial=True)
-
-
 @pytest.mark.parametrize("name", list(PAYLOADS))
-def test_serial_and_lanes_bodies_agree(name, host_lib):
-    """The serial row body and the lanes' body give the same ok and total,
+def test_lanes_body_matches_plain(name, host_lib):
+    """The lanes' body and the plain version give the same ok and total,
     and the same bytes wherever total < CAP."""
-    (lo, lt, lk), (so, st, sk) = _host_bodies()
+    (so, st, sk), (lo, lt, lk) = _full()[3], _lanes()
     i = list(PAYLOADS).index(name)
     assert (int(lt[i]), bool(lk[i])) == (int(st[i]), bool(sk[i]))
     if st[i] < so.shape[1]:
@@ -189,7 +176,7 @@ def test_streams_match_pallas_wherever_total_fits(name, host_lib):
     Pallas kernel's bytes [0, total), ok or not (random64k does not shrink,
     yet has a stream). Held for the lanes' body and the plain version."""
     _, _, (ro, rt, _), got = _full()
-    lanes = _host_bodies()[0]
+    lanes = _lanes()
     i = list(PAYLOADS).index(name)
     if name == "random64k":
         assert rt[i] < ro.shape[1] and not got[2][i]

@@ -6,9 +6,9 @@ Byte-exact contract, as in test_torch_encode.py: the same ok and total per
 row, and the same stream bytes [0, total) where ok holds; and, since the
 large-block path stitches the stream of a chunk that did not shrink, the
 same bytes wherever total < CAP. The plain version and the CUDA kernels'
-row body built with g++ (its lanes' body, and its serial body for the test
-that holds the two to each other) are each held to the Pallas kernel;
-tests/test_torch_gpu.py holds the CUDA kernels to the plain version.
+lanes' body built with g++ are each held to the Pallas kernel, and the
+lanes' body to the plain version; tests/test_torch_gpu.py holds the CUDA
+kernels to the plain version.
 """
 
 import functools
@@ -86,10 +86,9 @@ def host_lib():
 
 
 def _host_encode(lib, rows, lens, wins=None, wlens=None, wstride=1,
-                 chunks=1, serial=False):
+                 chunks=1):
     """The CUDA kernels' row body (csrc/lz4_encode.cuh) built with g++: K2a's
-    entry for a plain batch (wins None), K2b's otherwise; serial runs the
-    serial body (lz4t_encode_row) on the same rows instead of the lanes'."""
+    entry for a plain batch (wins None), K2b's otherwise."""
     R, width = rows.shape
     CAP = encode.out_width(width)
     out = np.zeros((R, CAP), np.uint8)
@@ -98,11 +97,7 @@ def _host_encode(lib, rows, lens, wins=None, wlens=None, wstride=1,
     res = (out.ctypes.data, tot.ctypes.data, ok.ctypes.data)
     win = (0, 0, 0) if wins is None else (
         wins.ctypes.data, wlens.ctypes.data, wins.shape[1])
-    if serial:
-        lib.lz4t_host_encode_serial(rows.ctypes.data, lens.ctypes.data,
-                                    win[0], win[1], *res, R, width, win[2],
-                                    chunks, wstride, CAP)
-    elif wins is None:
+    if wins is None:
         lib.lz4t_host_encode(rows.ctypes.data, lens.ctypes.data, *res, R,
                              width, CAP)
     else:
@@ -165,18 +160,17 @@ BATCHES = ["edge", "far-wstride1", "far-wstride2"]
 
 
 @pytest.mark.parametrize("batch", BATCHES)
-def test_serial_and_lanes_bodies_agree(batch, host_lib):
-    """The serial row body and the lanes' body give the same ok and total on
+def test_lanes_body_matches_plain(batch, host_lib):
+    """The lanes' body and the plain version give the same ok and total on
     every row, and the same bytes wherever total < CAP."""
-    args, kw, _, _ = _cached_batches()[batch]
+    args, kw, _, plain = _cached_batches()[batch]
     lanes = _host_encode(host_lib, *args, **kw)
-    serial = _host_encode(host_lib, *args, **kw, serial=True)
     CAP = lanes[0].shape[1]
-    assert lanes[1].tolist() == serial[1].tolist()
-    assert lanes[2].tolist() == serial[2].tolist()
-    for i, t in enumerate(serial[1].tolist()):
+    assert lanes[1].tolist() == plain[1].tolist()
+    assert lanes[2].tolist() == plain[2].tolist()
+    for i, t in enumerate(plain[1].tolist()):
         if t < CAP:
-            assert lanes[0][i, :t].tobytes() == serial[0][i, :t].tobytes()
+            assert lanes[0][i, :t].tobytes() == plain[0][i, :t].tobytes()
 
 
 @pytest.mark.parametrize("batch", BATCHES)

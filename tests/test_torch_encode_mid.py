@@ -8,8 +8,8 @@ same stream bytes [0, total) where ok holds. Plain rows, rows after full,
 partial, empty and tiny windows, window preload strides 1 and 2, and the
 grouped chunk rows of large blocks, at depth 2 and depth 4. The plain
 version and the CUDA kernel's row body built with g++ are each held to the
-Pallas kernel; tests/test_torch_gpu.py holds the CUDA kernel to the plain
-version.
+Pallas kernel, and the row body to the plain version at depth 2;
+tests/test_torch_gpu.py holds the CUDA kernel to the plain version.
 """
 
 import functools
@@ -137,11 +137,9 @@ def host_lib():
     return _build.load_host()
 
 
-def _host_encode(lib, rows, lens, wins, wlens, depth4, wstride=1, chunks=1,
-                 serial=False):
+def _host_encode(lib, rows, lens, wins, wlens, depth4, wstride=1, chunks=1):
     """The CUDA kernel's row body (csrc/lz4_encode_mid.cuh) built with g++;
-    wins None is a plain batch (D = 0). serial runs the serial body (K6b's,
-    depth 2 only) instead of the lanes' body."""
+    wins None is a plain batch (D = 0)."""
     R, width = rows.shape
     Dw = 0 if wins is None else wins.shape[1]
     CAP = encode.out_width(width)
@@ -153,11 +151,7 @@ def _host_encode(lib, rows, lens, wins, wlens, depth4, wstride=1, chunks=1,
             0 if wlens is None else wlens.ctypes.data, out.ctypes.data,
             tot.ctypes.data, ok.ctypes.data, R, width, Dw, chunks, wstride,
             CAP)
-    if serial:
-        assert not depth4
-        lib.lz4t_host_encode_mid_serial(*args)
-    else:
-        lib.lz4t_host_encode_mid(*args, int(depth4))
+    lib.lz4t_host_encode_mid(*args, int(depth4))
     return out, tot, ok
 
 
@@ -246,15 +240,15 @@ def _tiny(name: str, depth4: bool):
     ref = _np(encode_pallas.encode_batch_pallas_mid_dict(
         jnp.asarray(rows), jnp.asarray(lens), jnp.asarray(wins),
         jnp.asarray(wlens), interpret=True, depth4=depth4))
-    return (rows, lens, wins, wlens), ref
+    got = _np(encode_mid.encode_batch_mid_window(
+        *_t(rows, lens, wins, wlens), depth4=depth4))
+    return (rows, lens, wins, wlens), ref, got
 
 
 @pytest.mark.parametrize("depth", list(DEPTHS))
 @pytest.mark.parametrize("name", list(TINY))
 def test_tiny_windows_match_pallas(name, depth, host_lib):
-    args, ref = _tiny(name, DEPTHS[depth])
-    got = _np(encode_mid.encode_batch_mid_window(*_t(*args),
-                                                 depth4=DEPTHS[depth]))
+    args, ref, got = _tiny(name, DEPTHS[depth])
     _assert_same(ref, got, 0)
     _assert_same(ref, _host_encode(host_lib, *args, DEPTHS[depth]), 0)
     assert ref[2][0]  # each tiny case compresses
@@ -450,7 +444,7 @@ def test_edge_rows_reach_their_lanes():
 
 def _cached_batches(depth4: bool):
     """name -> (operands, wstride, chunks, Pallas outputs, plain version's
-    outputs or None) of every batch this module holds to Pallas."""
+    outputs) of every batch this module holds to Pallas."""
     out = {"plain": (_plain_rows(depth4), 1, 1),
            "edge": (_edge(depth4), 1, 1),
            "chunks": (_chunks(depth4), 2, K)}
@@ -458,7 +452,7 @@ def _cached_batches(depth4: bool):
         out[f"windows-wstride{ws}"] = (_windows(depth4, ws), ws, 1)
         out[f"far-wstride{ws}"] = (_far(depth4, ws), ws, 1)
     for name in TINY:
-        out[f"tiny-{name}"] = (_tiny(name, depth4) + (None,), 1, 1)
+        out[f"tiny-{name}"] = (_tiny(name, depth4), 1, 1)
     return {name: (c[0] + (None, None) * (len(c[0]) == 2), ws, chunks, c[1],
                    c[2])
             for name, (c, ws, chunks) in out.items()}
@@ -469,15 +463,14 @@ BATCHES = ["plain", "edge", "chunks", "windows-wstride1", "windows-wstride2",
 
 
 @pytest.mark.parametrize("batch", BATCHES)
-def test_serial_and_lanes_bodies_agree(batch, host_lib):
-    """K6b's serial row body (with K2c's emit) and the lanes' body give the
-    same ok and total on every row of every cached batch at depth 2, and
-    the same bytes where ok holds."""
-    args, ws, chunks, _, _ = _cached_batches(False)[batch]
+def test_lanes_body_matches_plain(batch, host_lib):
+    """The lanes' body and the plain version give the same ok and total on
+    every row of every cached batch at depth 2, and the same bytes where ok
+    holds."""
+    args, ws, chunks, _, plain = _cached_batches(False)[batch]
     lanes = _host_encode(host_lib, *args, False, ws, chunks)
-    serial = _host_encode(host_lib, *args, False, ws, chunks, serial=True)
     for i in range(len(lanes[1])):
-        _assert_same(serial, lanes, i)
+        _assert_same(plain, lanes, i)
 
 
 @pytest.mark.parametrize("depth", list(DEPTHS))
@@ -492,7 +485,7 @@ def test_streams_match_pallas_wherever_total_fits(batch, depth, host_lib):
     CAP = ref[0].shape[1]
     if batch == "plain":  # random64k does not shrink, yet has a stream
         assert any(t < CAP and not k for t, k in zip(ref[1], ref[2]))
-    for res in (host,) if got is None else (host, got):
+    for res in (host, got):
         assert res[1].tolist() == ref[1].tolist()
         for i, t in enumerate(ref[1].tolist()):
             if t < CAP:

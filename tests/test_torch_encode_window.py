@@ -7,8 +7,9 @@ same stream bytes [0, total) where ok holds. Windows are full, partial,
 empty and strided (wstride 1 for dictionaries and linked blocks, 2 for the
 chunks of large blocks), at the frame path's row widths (64 KiB block rows
 after 64 KiB window rows). The plain version and the CUDA kernel's row body
-built with g++ are each held to the Pallas kernel;
-tests/test_torch_gpu.py holds the CUDA kernel to the plain version.
+built with g++ are each held to the Pallas kernel, and the row body to the
+plain version; tests/test_torch_gpu.py holds the CUDA kernel to the plain
+version.
 """
 
 import functools
@@ -110,20 +111,17 @@ def host_lib():
     return _build.load_host()
 
 
-def _host_encode(lib, rows, lens, wins, wlens, wstride, chunks=1,
-                 serial=False):
-    """K2b's row body built with g++: the lanes' body, or with serial the
-    serial body (lz4t_encode_row) on the same rows."""
+def _host_encode(lib, rows, lens, wins, wlens, wstride, chunks=1):
+    """K2b's row body built with g++ (the lanes' body)."""
     R = rows.shape[0]
     CAP = encode.out_width(N)
     out = np.zeros((R, CAP), np.uint8)
     tot = np.zeros(R, np.int32)
     ok = np.zeros(R, np.uint8)
-    fn = lib.lz4t_host_encode_serial if serial else \
-        lib.lz4t_host_encode_window
-    fn(rows.ctypes.data, lens.ctypes.data, wins.ctypes.data,
-       wlens.ctypes.data, out.ctypes.data, tot.ctypes.data, ok.ctypes.data,
-       R, N, wins.shape[1], chunks, wstride, CAP)
+    lib.lz4t_host_encode_window(
+        rows.ctypes.data, lens.ctypes.data, wins.ctypes.data,
+        wlens.ctypes.data, out.ctypes.data, tot.ctypes.data, ok.ctypes.data,
+        R, N, wins.shape[1], chunks, wstride, CAP)
     return out, tot, ok
 
 
@@ -258,12 +256,10 @@ def _cached(batch: str):
 
 
 @functools.lru_cache(maxsize=None)
-def _host_bodies(batch: str):
-    """The lanes' and the serial body's results on a cached batch."""
+def _lanes(batch: str):
+    """The lanes' body's results on a cached batch."""
     args, ws, chunks, _, _ = _cached(batch)
-    lib = _build.load_host()
-    return (_host_encode(lib, *args, ws, chunks),
-            _host_encode(lib, *args, ws, chunks, serial=True))
+    return _host_encode(_build.load_host(), *args, ws, chunks)
 
 
 def _batch_rows():
@@ -275,10 +271,10 @@ def _batch_rows():
 
 
 @pytest.mark.parametrize("batch,i", _batch_rows())
-def test_serial_and_lanes_bodies_agree(batch, i, host_lib):
-    """The serial row body and the lanes' body give the same ok and total,
+def test_lanes_body_matches_plain(batch, i, host_lib):
+    """The lanes' body and the plain version give the same ok and total,
     and the same bytes wherever total < CAP."""
-    (lo, lt, lk), (so, st, sk) = _host_bodies(batch)
+    (so, st, sk), (lo, lt, lk) = _cached(batch)[4], _lanes(batch)
     assert (int(lt[i]), bool(lk[i])) == (int(st[i]), bool(sk[i]))
     if st[i] < so.shape[1]:
         assert lo[i, :st[i]].tobytes() == so[i, :st[i]].tobytes()
@@ -291,7 +287,7 @@ def test_streams_match_pallas_wherever_total_fits(batch, i, host_lib):
     stitches the stream of a chunk that did not shrink. Held for the lanes'
     body and the plain version."""
     _, _, _, (ro, rt, _), got = _cached(batch)
-    for out, tot, _ in (_host_bodies(batch)[0], got):
+    for out, tot, _ in (_lanes(batch), got):
         assert int(tot[i]) == int(rt[i])
         if rt[i] < ro.shape[1]:
             assert out[i, :rt[i]].tobytes() == ro[i, :rt[i]].tobytes()

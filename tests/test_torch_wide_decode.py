@@ -139,8 +139,8 @@ def host_lib():
 
 @pytest.mark.parametrize("cap", [WIDE, BW], ids=["K6a", "K1-96KiB"])
 def test_kernel_row_body_matches_pallas(cap, host_lib):
-    """The CUDA row bodies (lz4_decode_wide.cuh for K6a, lz4_decode.cuh for
-    K1), built for the host."""
+    """The CUDA row body of K6a and K1 (csrc/lz4_decode_ring.cuh), built for
+    the host."""
     rows, clens, ref, _ = _batch(cap)
     B, C = rows.shape
     out = np.zeros((B, cap), np.uint8)

@@ -13,10 +13,10 @@ corpus.wide_decode_edge_rows at 128 KiB: short offsets, ring wraps, clen
 past the row, streams that pass out_cap, bad literal runs whose n_out
 passes it, and rows that run to C beside rows of nonzero bytes. At 4 MiB,
 and on seeded random and damaged streams, the host build is held to the
-serial body it replaces (lz4t_host_decode_wide_serial). The contract: the
-same ok and n_out per row, and the same bytes [0, n_out) where ok holds
-(a bad literal run counts in n_out uncopied). tests/test_torch_gpu.py
-holds the kernel itself to the plain version on a GPU.
+plain version. The contract: the same ok and n_out per row, and the same
+bytes [0, n_out) where ok holds (a bad literal run counts in n_out
+uncopied). tests/test_torch_gpu.py holds the kernel itself to the plain
+version on a GPU.
 """
 
 import functools
@@ -50,15 +50,14 @@ def host_lib():
     return _build.load_host()
 
 
-def _host(lib, rows, clens, cap, serial=False):
+def _host(lib, rows, clens, cap):
     B, C = rows.shape
     out = np.zeros((B, cap), np.uint8)
     n = np.zeros(B, np.int32)
     ok = np.zeros(B, np.uint8)
-    fn = (lib.lz4t_host_decode_wide_serial if serial
-          else lib.lz4t_host_decode_wide)
-    fn(rows.ctypes.data, clens.ctypes.data, out.ctypes.data, n.ctypes.data,
-       ok.ctypes.data, B, C, cap)
+    lib.lz4t_host_decode_wide(rows.ctypes.data, clens.ctypes.data,
+                              out.ctypes.data, n.ctypes.data, ok.ctypes.data,
+                              B, C, cap)
     return out, n, ok.astype(bool)
 
 
@@ -69,6 +68,11 @@ def _pallas(name: str):
         jnp.asarray(rows), jnp.asarray(clens), out_cap=cap, interpret=True))
 
 
+def _plain(rows, clens, cap):
+    return tuple(t.numpy() for t in decode.decode_batch(
+        torch.from_numpy(rows), torch.from_numpy(clens), cap))
+
+
 _port_cache: dict = {}
 
 
@@ -76,12 +80,8 @@ def _port(impl: str, name: str, lib=None):
     key = (impl, name)
     if key not in _port_cache:
         rows, clens, cap = _batches()[name]
-        if impl == "plain":
-            _port_cache[key] = tuple(t.numpy() for t in decode.decode_batch(
-                torch.from_numpy(rows), torch.from_numpy(clens), cap))
-        else:
-            _port_cache[key] = _host(lib, rows, clens, cap,
-                                     serial=impl == "serial")
+        _port_cache[key] = (_plain(rows, clens, cap) if impl == "plain"
+                            else _host(lib, rows, clens, cap))
     return _port_cache[key]
 
 
@@ -134,9 +134,8 @@ def test_short_offsets_match_pallas(impl, off, request):
 
 
 @pytest.mark.parametrize("name", BIG_NAMES)
-def test_4mib_rows_match_serial_body(name, host_lib):
-    _assert_rows_same(_port("serial", name, host_lib),
-                      _port("g++", name, host_lib),
+def test_4mib_rows_match_plain(name, host_lib):
+    _assert_rows_same(_port("plain", name), _port("g++", name, host_lib),
                       range(len(_batches()[name][1])))
 
 
@@ -297,7 +296,7 @@ def _random_streams(seed: int, n: int = 25) -> list[bytes]:
 @pytest.mark.parametrize("width", [(1024, 131072), (256, 131072),
                                    (4096, 262144)])
 @pytest.mark.parametrize("seed", range(4))
-def test_ring_body_matches_serial_body(seed, width, host_lib):
+def test_ring_body_matches_plain(seed, width, host_lib):
     """25 seeded streams per case, 300 in all, at widths where streams run
     past C (zero reads) and literal runs past out_cap or clen."""
     C, cap = width
@@ -308,7 +307,7 @@ def test_ring_body_matches_serial_body(seed, width, host_lib):
         s = s[:C]
         rows[i, :len(s)] = np.frombuffer(s, np.uint8)
     got = _host(host_lib, rows, clens, cap)
-    ref = _host(host_lib, rows, clens, cap, serial=True)
+    ref = _plain(rows, clens, cap)
     _assert_rows_same(ref, got, range(len(streams)))
     # a literal run past out_cap, where C holds its length bytes
     assert (ref[1] > cap).any() or C < cap // 255

@@ -2,11 +2,11 @@
 warp-cooperative parse: the host build of its path (csrc/lz4_encode_wide.cuh:
 K2a/K2b's and K2c's lanes' bodies with K6b's emit, handing sequences
 through the ring to the emit warps' steps) against the JAX package's
-packed-word Pallas kernel in interpret mode, and against K6b's serial
-bodies (lz4t_host_encode_wide_serial).
+packed-word Pallas kernel in interpret mode, and against K6b's plain
+version (encode_wide.encode_row_wide_plain).
 
 Byte-exact contract: the same ok and total per row, and the same stream
-bytes [0, total) where ok holds; against the serial bodies also wherever
+bytes [0, total) where ok holds; against the plain version also wherever
 total < CAP (the sequences tile the output, so no byte below the clip
 depends on the order the emit warps write in). The rows: the wide batches
 that test_torch_wide.py and test_torch_wide_edges.py hold to Pallas (each
@@ -41,10 +41,10 @@ def host_lib():
 
 
 def _host_wide(lib, rows, lens, D=0, wins=None, wlens=None, mid=False,
-               cap=None, serial=False):
-    """K6b's host path (or its serial bodies) on rows (R, N) after optional
-    right-aligned windows (R, D): the kernel's [window | block | 8 zero]
-    rows, built here. cap: the output width (default CAP of N)."""
+               cap=None):
+    """K6b's host path on rows (R, N) after optional right-aligned windows
+    (R, D): the kernel's [window | block | 8 zero] rows, built here. cap:
+    the output width (default CAP of N)."""
     R, N = rows.shape
     DT = D + N + 8
     comb = np.zeros((R, DT), np.uint8)
@@ -57,12 +57,29 @@ def _host_wide(lib, rows, lens, D=0, wins=None, wlens=None, mid=False,
     ok = np.zeros(R, np.uint8)
     wl = np.zeros(R, np.int32) if wlens is None else np.asarray(wlens,
                                                                 np.int32)
-    fn = (lib.lz4t_host_encode_wide_serial if serial
-          else lib.lz4t_host_encode_wide)
-    fn(comb.ctypes.data, np.ascontiguousarray(lens).ctypes.data,
-       wl.ctypes.data, out.ctypes.data, tot.ctypes.data, ok.ctypes.data, R,
-       DT, D, CAP, int(mid))
+    lib.lz4t_host_encode_wide(
+        comb.ctypes.data, np.ascontiguousarray(lens).ctypes.data,
+        wl.ctypes.data, out.ctypes.data, tot.ctypes.data, ok.ctypes.data, R,
+        DT, D, CAP, int(mid))
     return out, tot, ok.astype(bool)
+
+
+def _plain_wide(rows, lens, D=0, wins=None, wlens=None, mid=False,
+                cap=None):
+    """K6b's plain version on the rows _host_wide takes, with its results'
+    layout."""
+    R, N = rows.shape
+    CAP = encode.out_width(N) if cap is None else cap
+    out = np.zeros((R, CAP), np.uint8)
+    tot = np.zeros(R, np.int32)
+    ok = np.zeros(R, bool)
+    for r in range(R):
+        win = wins[r].tobytes() if D else b""
+        s, tot[r], ok[r] = encode_wide.encode_row_wide_plain(
+            rows[r].tobytes(), int(lens[r]), N, win,
+            int(wlens[r]) if D else 0, mid=mid, cap=cap)
+        out[r, :len(s)] = np.frombuffer(s, np.uint8)
+    return out, tot, ok
 
 
 def _same_where_ok(ref, got, i):
@@ -136,13 +153,13 @@ def test_lanes_path_and_plain_match_pallas_at_the_edge(kind, D, N, host_lib):
 
 
 # ---------------------------------------------------------------------------
-# the lanes' path against the serial bodies
+# the lanes' path against the plain version
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
 def _edge_batches(mid: bool):
-    """corpus.wide_edge_rows through both paths: {"plain" | "window":
-    (lanes, serial, blocks)}."""
+    """corpus.wide_edge_rows through the lanes' path and the plain version:
+    {"plain" | "window": (lanes, plain, blocks)}."""
     lib = _build.load_host()
     (blocks, N), (wblocks, Nw, wins, wlens) = corpus.wide_edge_rows(mid)
     out = {}
@@ -152,8 +169,8 @@ def _edge_batches(mid: bool):
              dict(D=65536, wins=np.stack([np.frombuffer(w, np.uint8)
                                           for w in wins]), wlens=wlens))):
         rows, lens = _rows_of(bl, width)
-        out[key] = tuple(_host_wide(lib, rows, lens, mid=mid, serial=s, **kw)
-                         for s in (False, True)) + (bl,)
+        out[key] = (_host_wide(lib, rows, lens, mid=mid, **kw),
+                    _plain_wide(rows, lens, mid=mid, **kw), bl)
     return out
 
 
@@ -185,13 +202,13 @@ def _edge_params():
 
 
 @pytest.mark.parametrize("mid,key,i", _edge_params())
-def test_lanes_path_matches_serial_on_edge_rows(mid, key, i, host_lib):
+def test_lanes_path_matches_plain_on_edge_rows(mid, key, i, host_lib):
     """Every greedy / chain edge row past the bw_fits edge, alone and at
     the row's end: the same ok and total, the same bytes wherever total <
     CAP, and an ok stream decodes to its block."""
-    lanes, serial, blocks = _edge_batches(mid)[key]
+    lanes, plain, blocks = _edge_batches(mid)[key]
     rows = (lanes[0][i:i + 1], lanes[1][i:i + 1], lanes[2][i:i + 1])
-    ref = (serial[0][i:i + 1], serial[1][i:i + 1], serial[2][i:i + 1])
+    ref = (plain[0][i:i + 1], plain[1][i:i + 1], plain[2][i:i + 1])
     _same_where_fits(ref, rows)
     if key == "plain" and lanes[2][i]:
         t = int(lanes[1][i])
@@ -229,11 +246,11 @@ def _big_rows():
 
 
 @pytest.mark.parametrize("mid", [False, True], ids=["greedy", "mid"])
-def test_lanes_path_matches_serial_on_4mib_rows(mid, host_lib):
+def test_lanes_path_matches_plain_on_4mib_rows(mid, host_lib):
     rows, lens = _big_rows()
     lanes = _host_wide(host_lib, rows, lens, mid=mid)
-    _same_where_fits(_host_wide(host_lib, rows, lens, mid=mid, serial=True),
-                     lanes)
+    plain = _plain_wide(rows, lens, mid=mid)
+    _same_where_fits(plain, lanes)
     assert lanes[2].all()
     for i in range(2):
         t = int(lanes[1][i])
@@ -258,25 +275,25 @@ def _cap_rows():
                     tw.near_incompressible(CAP_N, 84, 64, 9)], CAP_N)
 
 
-def _caps(lib, mid):
+def _caps(mid):
     """Output caps around each row's full total (where a room guard of 32
     bytes would refuse a sequence that K6b's emit takes), and caps that
     stop the streams mid-row."""
     rows, lens = _cap_rows()
-    full = _host_wide(lib, rows, lens, mid=mid, serial=True)[1]
+    full = _plain_wide(rows, lens, mid=mid)[1]
     caps = sorted({int(t) + k for t in full for k in range(0, 48, 3)}
                   | {CAP_N // 4, CAP_N // 2, CAP_N // 2 + 1})
     return rows, lens, caps
 
 
 @pytest.mark.parametrize("mid", [False, True], ids=["greedy", "mid"])
-def test_lanes_path_matches_serial_under_output_caps(mid, host_lib):
-    rows, lens, caps = _caps(host_lib, mid)
+def test_lanes_path_matches_plain_under_output_caps(mid, host_lib):
+    rows, lens, caps = _caps(mid)
     inside_guard = 0
     for cap in caps:
         lanes = _host_wide(host_lib, rows, lens, mid=mid, cap=cap)
-        _same_where_fits(_host_wide(host_lib, rows, lens, mid=mid, cap=cap,
-                                    serial=True), lanes)
+        plain = _plain_wide(rows, lens, mid=mid, cap=cap)
+        _same_where_fits(plain, lanes)
         # a total the room guard's 32-byte margin would have refused
         inside_guard += int(((lanes[1] < cap) & (lanes[1] > cap - 32)).sum())
     assert inside_guard > 0
