@@ -42,20 +42,25 @@
 //
 // Plain rows (no window, at most 65,536 bytes: the ring then holds every
 // link of the row) take lz4t_encode_deep_plain_kernel, which keeps the
-// walk table out of device memory and off the serial path: after the same
-// staging, build and ring load, warp 0 parses while the block's other
-// LZ4T_DEEP_PIPE_WARPS warps fill the table into a ring of
+// key match and the walk table off the serial path. Its build is split
+// (lz4t_deep_build_split): the block's other LZ4T_DEEP_PIPE_WARPS warps
+// compute each build step's keys and peers (__match_any_sync) as one word
+// a position into a ring of LZ4T_DEEP_PEER_SLOTS chunks in the table
+// ring's memory, chunk by chunk ahead of warp 0, whose step keeps the head
+// table's read and write and the delta store. After the ring load, warp 0
+// parses while the other warps fill the walk table into a ring of
 // LZ4T_DEEP_PIPE_SLOTS chunks of LZ4T_DEEP_PIPE_CHUNK entries in shared
 // memory (lz4t_pipe_fill), chunk by chunk in position order, handing each
 // over with mbarriers; the parse waits for a chunk before it reads it and
 // hands it back once its scan has passed it (lz4t_pipe_tab). So a row
 // takes the build and then the longer of the table and the parse, not
 // their sum, and the parse reads its entries from shared memory. Shared
-// memory: 131,072 (ring) + 32,896 (table ring and barriers) + 65,544 (the
-// row) = 229,512 B for a 64 KiB row. 19 table warps (640 threads) gave the
-// shortest launches over the frame cell's rows at walk budgets 2 and 32
-// among 11-23 (tools/encode_deep_stamps_torch.py, PERF.md): fewer leave
-// the parse waiting for chunks on rows of long chains, more slow it.
+// memory: 131,072 (ring) + 33,024 (table ring, the barriers of both rings)
+// + 65,544 (the row) = 229,640 B for a 64 KiB row. 19 table warps (640
+// threads) gave the shortest launches over the frame cell's rows at walk
+// budgets 2 and 32 among 11-23 (tools/encode_deep_stamps_torch.py,
+// PERF.md): fewer leave the parse waiting for chunks on rows of long
+// chains, more slow it.
 #include <cuda_runtime.h>
 
 #include "lz4_encode_deep.cuh"
@@ -123,13 +128,16 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The plain kernel's shared memory: the ring (the build's head table
-// before it), the table ring, its barriers, then the row.
+// before it), the table ring (the peer ring before it), the barriers of
+// both, then the row.
 struct lz4t_plain_smem {
   uint32_t* head;
   uint16_t* ring;
   uint32_t* slot;
   uint64_t* full;
   uint64_t* empty;
+  uint64_t* peer_full;
+  uint64_t* peer_empty;
   uint32_t* roww;
 };
 
@@ -139,8 +147,28 @@ __device__ __forceinline__ lz4t_plain_smem lz4t_plain_layout() {
   uint64_t* full = reinterpret_cast<uint64_t*>(
       slot + LZ4T_DEEP_PIPE_SLOTS * LZ4T_DEEP_PIPE_CHUNK);
   uint64_t* empty = full + LZ4T_DEEP_PIPE_SLOTS;
-  return {smem, reinterpret_cast<uint16_t*>(smem), slot, full, empty,
-          reinterpret_cast<uint32_t*>(empty + LZ4T_DEEP_PIPE_SLOTS)};
+  uint64_t* peer_full = empty + LZ4T_DEEP_PIPE_SLOTS;
+  uint64_t* peer_empty = peer_full + LZ4T_DEEP_PEER_SLOTS;
+  return {smem,      reinterpret_cast<uint16_t*>(smem),
+          slot,      full,
+          empty,     peer_full,
+          peer_empty, reinterpret_cast<uint32_t*>(peer_empty +
+                                                  LZ4T_DEEP_PEER_SLOTS)};
+}
+
+// The build warp's part of the chain build runs in the kernel's body; the
+// peer warps' part is compiled apart, as the parse's and table's parts.
+__device__ __forceinline__ void lz4t_plain_build(int n, uint16_t* dr) {
+  const lz4t_plain_smem m = lz4t_plain_layout();
+  lz4t_peer_ring<lz4t_peer_bars> pr = {m.slot, {m.peer_full, m.peer_empty}};
+  lz4t_deep_build_split(n - 12, m.head, dr, pr);
+}
+
+__device__ __noinline__ void lz4t_plain_peers(int n, int hash_log, int w) {
+  const lz4t_plain_smem m = lz4t_plain_layout();
+  lz4t_peer_fill<LZ4T_DEEP_PIPE_WARPS>(
+      reinterpret_cast<const uint8_t*>(m.roww), n - 12, hash_log, m.slot,
+      m.peer_full, m.peer_empty, w);
 }
 
 // The parse warp's and the table warps' parts of a plain row are functions
@@ -182,12 +210,14 @@ __global__ void __launch_bounds__(kPlainThreads, 1)
   uint16_t* dr = delta + (size_t)r * DT;
   for (int i = t; i < (1 << hash_log); i += kPlainThreads) m.head[i] = 0;
   lz4t_stage_row(m.roww, data, nullptr, r, N, 0, 1, 0);
-  lz4t_pipe_init<LZ4T_DEEP_PIPE_WARPS>(m.full, m.empty);
+  lz4t_pipe_init<LZ4T_DEEP_PIPE_WARPS>(m.full, m.empty, m.peer_full,
+                                       m.peer_empty);
   __syncthreads();
   const int n = lens[r];
   if (t < 32)
-    lz4t_deep_build(reinterpret_cast<const uint8_t*>(m.roww), 0, n - 12,
-                    hash_log, m.head, dr);
+    lz4t_plain_build(n, dr);
+  else
+    lz4t_plain_peers(n, hash_log, (t >> 5) - 1);
   __syncthreads();
   for (int i = t; i < lz4t_min(LZ4T_DEEP_RING, DT); i += kPlainThreads)
     m.ring[i] = dr[i];

@@ -36,7 +36,9 @@
 // max{q in [first, p) : hash(q) = hash(p)}, or 0 without such a q:
 // lz4t_deep_build computes exactly that for [first, mflimit], one warp,
 // 32 positions per step (__match_any_sync gives a lane its predecessor
-// inside the step, the head table the one before it).
+// inside the step, the head table the one before it). Plain rows of the
+// pipelined kernel take lz4t_deep_build_split, the same steps with the
+// keys and the match computed ahead by other warps.
 //
 // The links are stored as u16 deltas to the previous position, 0 ending
 // the chain (a delta over 65535, or no previous position), which is the
@@ -104,10 +106,16 @@
 #define LZ4T_DEEP_PIPE_SLOTS 8
 #define LZ4T_DEEP_PIPE_CHUNK 1024
 #define LZ4T_DEEP_PIPE_WARPS 19
-// shared memory of the ring: the entries, a full and an empty mbarrier
-// per slot
-#define LZ4T_DEEP_PIPE_SMEM \
-  (LZ4T_DEEP_PIPE_SLOTS * (LZ4T_DEEP_PIPE_CHUNK * 4 + 16))
+// the peer ring of a plain row's chain build, in the table ring's entries
+// before the table needs them: slots (a power of 2) of chunks of build
+// positions (a power of 2, a multiple of 32), one u32 word a position
+#define LZ4T_DEEP_PEER_SLOTS 8
+#define LZ4T_DEEP_PEER_CHUNK 1024
+// shared memory of the two rings: the table's entries, a full and an
+// empty mbarrier per slot of each ring
+#define LZ4T_DEEP_PIPE_SMEM                                    \
+  (LZ4T_DEEP_PIPE_SLOTS * (LZ4T_DEEP_PIPE_CHUNK * 4 + 16) + \
+   LZ4T_DEEP_PEER_SLOTS * 16)
 
 // Build key of the lane at position p: its hash, or a key no other lane
 // has past the last position.
@@ -156,6 +164,109 @@ LZ4T_HD void lz4t_deep_build(const uint8_t* c, int first, int last,
       delta[p] = lz4t_build_delta(p, prev[l]);
     });
   }
+}
+
+// The split build of a plain row (first 0): the same chain as
+// lz4t_deep_build, with everything but the head table off the build warp.
+// A step's keys and peer sets depend only on the row's bytes; only the
+// head table carries from one step to the next. So other warps compute
+// each step ahead of it (lz4t_peer_step) as one word a position, into a
+// ring of chunks of LZ4T_DEEP_PEER_CHUNK positions (chunk k in slot k %
+// LZ4T_DEEP_PEER_SLOTS) handed over as the table ring's chunks are, and
+// the build warp's step keeps the head read, the head write of a group's
+// highest lane and the delta store.
+
+// A lane's peer word (0 past the last position): its key in bits 0-15
+// (hash_log <= 16), bit 31 where it is the highest lane of its group (it
+// writes the head), bit 30 where a lower lane has its key, bits 16-20 the
+// distance to the highest such lane.
+#define LZ4T_PEER_HEAD 0x80000000u
+#define LZ4T_PEER_LOWER 0x40000000u
+
+LZ4T_HD uint32_t lz4t_peer_word(uint32_t key, uint32_t peers, int lane) {
+  if (key & 0x80000000u) return 0;
+  const uint32_t lower = peers & ((1u << lane) - 1);
+  return ((peers >> lane) == 1 ? LZ4T_PEER_HEAD : 0u) |
+         (lower ? LZ4T_PEER_LOWER | (uint32_t)(lane - lz4t_fls(lower)) << 16
+                : 0u) |
+         key;
+}
+
+// the number of peer chunks of build positions [0, last]
+LZ4T_HD int lz4t_peer_chunks(int last) {
+  return last >= 0 ? last / LZ4T_DEEP_PEER_CHUNK + 1 : 0;
+}
+
+// The peer words of the build step from t0 into pw[0 .. 31] (a warp's
+// lanes together).
+LZ4T_HD void lz4t_peer_step(const uint8_t* c, int t0, int last, int hash_log,
+                            uint32_t* pw) {
+  uint32_t key[LZ4T_NL], peers[LZ4T_NL];
+  lz4t_lanes_out([&](int i) {
+    key[lz4t_li(i)] = lz4t_build_key(c, t0 + i, last, i, hash_log);
+  });
+  lz4t_match_any(key, peers);
+  lz4t_lanes_out([&](int i) {
+    const int l = lz4t_li(i);
+    pw[i] = lz4t_peer_word(key[l], peers[l], i);
+  });
+}
+
+// The build warp's view of the peer ring: step(t0) returns the words of
+// the step from t0, having waited for its chunk and handed back the chunk
+// before it (sync.wait_full(k), sync.hand_back(k) as in lz4t_pipe_tab);
+// steps come in order.
+template <class Sync>
+struct lz4t_peer_ring {
+  const uint32_t* slot;  // LZ4T_DEEP_PEER_SLOTS x LZ4T_DEEP_PEER_CHUNK
+  Sync sync;
+  LZ4T_HDM const uint32_t* step(int t0) {
+    if (__builtin_expect(!(t0 & (LZ4T_DEEP_PEER_CHUNK - 1)), 0)) {
+      const int k = t0 / LZ4T_DEEP_PEER_CHUNK;
+      if (k) sync.hand_back(k - 1);
+      sync.wait_full(k);
+    }
+    return slot + (t0 & (LZ4T_DEEP_PEER_SLOTS * LZ4T_DEEP_PEER_CHUNK - 1));
+  }
+  // the build has ended: its last chunk goes back
+  LZ4T_HDM void finish(int last) {
+    if (last >= 0) sync.hand_back(last / LZ4T_DEEP_PEER_CHUNK);
+  }
+};
+
+// The build warp's part of the split build: the chain of positions [0,
+// last] into delta, head as lz4t_deep_build's. A step's words are read
+// before the step before it stores, which they do not depend on. Every
+// lane reads its bucket's head, also where a lower lane has its key (the
+// lower lane's address: one broadcast) or past the last position (bucket
+// 0's, unused), so the step takes no branch on the words.
+template <class Peers>
+LZ4T_HD void lz4t_deep_build_split(int last, uint32_t* head, uint16_t* delta,
+                                   Peers& pr) {
+  uint32_t w[LZ4T_NL], x[LZ4T_NL];
+  int prev[LZ4T_NL];
+  const auto load = [&](int t0) {
+    const uint32_t* b = pr.step(t0);
+    lz4t_lanes_out([&](int i) { w[lz4t_li(i)] = b[i]; });
+  };
+  if (last >= 0) load(0);
+  for (int t0 = 0; t0 <= last; t0 += LZ4T_LANES) {
+    // every lane reads the head before any lane writes it
+    lz4t_lanes([&](int i) {
+      const int l = lz4t_li(i), p = t0 + i;
+      x[l] = w[l];
+      const int h = (int)head[x[l] & 0xFFFF] - 1;
+      prev[l] = x[l] & LZ4T_PEER_LOWER ? p - (int)(x[l] >> 16 & 31) : h;
+    });
+    if (t0 + LZ4T_LANES <= last) load(t0 + LZ4T_LANES);
+    lz4t_lanes_store([&](int i) {
+      const int l = lz4t_li(i), p = t0 + i;
+      if (p > last) return;
+      if (x[l] & LZ4T_PEER_HEAD) head[x[l] & 0xFFFF] = (uint32_t)(p + 1);
+      delta[p] = lz4t_build_delta(p, prev[l]);
+    });
+  }
+  pr.finish(last);
 }
 
 // The chain as the walks read it (see the file comment).
@@ -423,39 +534,70 @@ LZ4T_HD void lz4t_encode_deep_row(const uint8_t* c, int base, int first,
 
 #if defined(__CUDACC__)
 
-// The card's hand-over of the table ring: per slot a full mbarrier (one
-// arrival per table warp once it has written its entries of the chunk) and
-// an empty one (the parse's lane 0 arrives once the parse is done with
-// the chunk). Every lane of the parse warp waits.
-struct lz4t_pipe_bars {
+// The card's hand-over of a ring of kSlots chunks: per slot a full
+// mbarrier (one arrival per producing warp once it has written its part of
+// the chunk) and an empty one (the consumer's lane 0 arrives once its warp
+// is done with the chunk). Every lane of the consuming warp waits.
+template <int kSlots>
+struct lz4t_ring_bars {
   uint64_t* full;
   uint64_t* empty;
   __host__ __device__ void wait_full(int k) {
 #if defined(__CUDA_ARCH__)
-    lz4t_mbar_wait(&full[k & (LZ4T_DEEP_PIPE_SLOTS - 1)],
-                   (k / LZ4T_DEEP_PIPE_SLOTS) & 1);
+    lz4t_mbar_wait(&full[k & (kSlots - 1)], (k / kSlots) & 1);
 #endif
   }
   __host__ __device__ void hand_back(int k) {
 #if defined(__CUDA_ARCH__)
     __syncwarp();  // every lane's reads of the chunk come first
-    if (lz4t_lead())
-      lz4t_mbar_arrive(&empty[k & (LZ4T_DEEP_PIPE_SLOTS - 1)]);
+    if (lz4t_lead()) lz4t_mbar_arrive(&empty[k & (kSlots - 1)]);
 #endif
   }
 };
 
-// The ring's barriers, set up by thread 0 before the block syncs: full
-// counts the kWarps table warps, empty the parse.
+// the table ring's (the parse consumes) and the peer ring's (the build
+// warp consumes)
+using lz4t_pipe_bars = lz4t_ring_bars<LZ4T_DEEP_PIPE_SLOTS>;
+using lz4t_peer_bars = lz4t_ring_bars<LZ4T_DEEP_PEER_SLOTS>;
+
+// The two rings' barriers, set up by thread 0 before the block syncs: full
+// counts the kWarps producing warps, empty the consumer.
 template <int kWarps>
 __device__ __forceinline__ void lz4t_pipe_init(uint64_t* full,
-                                               uint64_t* empty) {
+                                               uint64_t* empty,
+                                               uint64_t* peer_full,
+                                               uint64_t* peer_empty) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < LZ4T_DEEP_PIPE_SLOTS; s++) {
       lz4t_mbar_init(&full[s], kWarps);
       lz4t_mbar_init(&empty[s], 1);
     }
+    for (int s = 0; s < LZ4T_DEEP_PEER_SLOTS; s++) {
+      lz4t_mbar_init(&peer_full[s], kWarps);
+      lz4t_mbar_init(&peer_empty[s], 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+}
+
+// Peer warp w of kWarps: the peer words of build positions [0, last] into
+// the peer ring, chunk by chunk, steps to the warps in turn as in
+// lz4t_pipe_fill.
+template <int kWarps>
+__device__ __forceinline__ void lz4t_peer_fill(const uint8_t* c, int last,
+                                               int hash_log, uint32_t* slot,
+                                               uint64_t* full,
+                                               uint64_t* empty, int w) {
+  constexpr int S = LZ4T_DEEP_PEER_SLOTS, E = LZ4T_DEEP_PEER_CHUNK;
+  const int nchunks = lz4t_peer_chunks(last);
+  int g = w;
+  for (int k = 0; k < nchunks; k++) {
+    if (k >= S) lz4t_mbar_wait(&empty[k & (S - 1)], (k / S - 1) & 1);
+    for (; g < (k + 1) * (E / 32) && 32 * g <= last; g += kWarps)
+      lz4t_peer_step(c, 32 * g, last, hash_log,
+                     slot + ((32 * g) & (S * E - 1)));
+    __syncwarp();
+    if (lz4t_lead()) lz4t_mbar_arrive(&full[k & (S - 1)]);
   }
 }
 

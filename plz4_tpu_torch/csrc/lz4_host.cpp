@@ -8,6 +8,7 @@
 // loops over lanes 0-31 here (lz4_lanes.cuh).
 #include <string.h>
 
+#include <algorithm>
 #include <vector>
 
 #include "lz4_decode_ring.cuh"
@@ -138,17 +139,70 @@ extern "C" void lz4t_host_encode_mid(const uint8_t* data, const int32_t* lens,
              CAP, depth4);
 }
 
-// K4's chain build (lz4t_deep_build) of row r into delta (Dc + N + 8
-// entries); returns the row's first usable position.
+// K4's peer ring of a plain row's split build (lz4t_peer_ring) on the
+// host: where the card's build warp waits for chunk k, the peer words of
+// the chunks up to k are computed in order, each only once the chunk
+// before it in its slot has been handed back, as the card's peer warps
+// wait for it; a chunk the build hands back is poisoned at once, as are
+// the slots before their first chunk, so a build that reads a word it has
+// not waited for, or one it has handed back, takes a lower peer 31 lanes
+// down and writes bucket 0's head, and builds another chain. A chunk
+// needed while its slot is still held would hang the card: *stuck is then
+// set.
+struct host_peer_sync {
+  static constexpr uint32_t kPoison =
+      LZ4T_PEER_HEAD | LZ4T_PEER_LOWER | 31u << 16;
+  const uint8_t* c;
+  int last, hash_log;
+  uint32_t* slot;
+  int made, freed;
+  bool* stuck;
+  void fill() {
+    constexpr int S = LZ4T_DEEP_PEER_SLOTS, E = LZ4T_DEEP_PEER_CHUNK;
+    if (made - freed >= S) *stuck = true;
+    for (int t0 = made * E; t0 < (made + 1) * E && t0 <= last;
+         t0 += LZ4T_LANES)
+      lz4t_peer_step(c, t0, last, hash_log, slot + (t0 & (S * E - 1)));
+    made++;
+  }
+  void wait_full(int k) {
+    while (made <= k) fill();
+  }
+  void hand_back(int k) {
+    constexpr int S = LZ4T_DEEP_PEER_SLOTS, E = LZ4T_DEEP_PEER_CHUNK;
+    std::fill_n(slot + (k & (S - 1)) * E, E, kPoison);
+    freed = k + 1;
+  }
+};
+
+// K4's chain build of row r into delta (Dc + N + 8 entries): the split
+// build through the peer ring (peers, LZ4T_DEEP_PEER_SLOTS x
+// LZ4T_DEEP_PEER_CHUNK words) where split holds (a plain row of the
+// pipelined kernel), else lz4t_deep_build. Returns the row's first usable
+// position; a build that would hang the card leaves every delta 0xFFFF.
 static int deep_chain_row(std::vector<uint8_t>& row,
-                          std::vector<uint32_t>& head, uint16_t* delta,
+                          std::vector<uint32_t>& head,
+                          std::vector<uint32_t>& peers, uint16_t* delta,
                           const uint8_t* data, const int32_t* lens,
                           const uint8_t* win, const int32_t* wlens, int r,
-                          int N, int D, int K, int Dc, int hash_log) {
+                          int N, int D, int K, int Dc, int hash_log,
+                          bool split) {
   memset(head.data(), 0, head.size() * 4);
   const int first = stage_window_row(row, data, win, wlens, r, N, D, K, Dc);
-  lz4t_deep_build(row.data(), first, Dc + lens[r] - 12, hash_log,
-                  head.data(), delta);
+  const int last = Dc + lens[r] - 12;
+  if (!split) {
+    lz4t_deep_build(row.data(), first, last, hash_log, head.data(), delta);
+    return first;
+  }
+  peers.assign(LZ4T_DEEP_PEER_SLOTS * LZ4T_DEEP_PEER_CHUNK,
+               host_peer_sync::kPoison);
+  bool stuck = false;
+  lz4t_peer_ring<host_peer_sync> pr = {
+      peers.data(),
+      {row.data(), last, hash_log, peers.data(), 0, 0, &stuck}};
+  lz4t_deep_build_split(last, head.data(), delta, pr);
+  if (stuck)
+    for (int q = 0; q < N + 8; q++) delta[q] = 0xFFFF;
   return first;
 }
 
@@ -165,9 +219,11 @@ extern "C" void lz4t_host_encode_deep(const uint8_t* data,
   std::vector<uint32_t> head(1 << hash_log), tab(N);
   std::vector<uint16_t> ring(LZ4T_DEEP_RING), delta(DT);
   std::vector<uint8_t> row;
+  std::vector<uint32_t> peers;
   for (int r = 0; r < R; r++) {
-    const int first = deep_chain_row(row, head, delta.data(), data, lens, win,
-                                     wlens, r, N, D, K, Dc, hash_log);
+    const int first = deep_chain_row(row, head, peers, delta.data(), data,
+                                     lens, win, wlens, r, N, D, K, Dc,
+                                     hash_log, false);
     const int mflimit = Dc + lens[r] - 12, matchlimit = Dc + lens[r] - 5;
     for (int q = 0; q < LZ4T_DEEP_RING && q < DT; q++) ring[q] = delta[q];
     lz4t_ring rg = {ring.data(), delta.data(), LZ4T_DEEP_RING};
@@ -229,7 +285,8 @@ struct host_pipe_sync {
 };
 
 // K4 on plain rows: lz4_encode_deep.cu's lz4t_encode_deep_plain_kernel,
-// the parse reading the table through the ring as it is filled.
+// the split build reading its peers through the peer ring, the parse the
+// table through the table ring, each as it is filled.
 extern "C" void lz4t_host_encode_deep_plain(const uint8_t* data,
                                             const int32_t* lens,
                                             uint8_t* out, int32_t* totals,
@@ -241,9 +298,10 @@ extern "C" void lz4t_host_encode_deep_plain(const uint8_t* data,
   std::vector<uint32_t> slot(LZ4T_DEEP_PIPE_SLOTS * LZ4T_DEEP_PIPE_CHUNK);
   std::vector<uint16_t> ring(LZ4T_DEEP_RING), delta(DT);
   std::vector<uint8_t> row;
+  std::vector<uint32_t> peers;
   for (int r = 0; r < R; r++) {
-    deep_chain_row(row, head, delta.data(), data, lens, nullptr, nullptr, r,
-                   N, 0, 1, 0, hash_log);
+    deep_chain_row(row, head, peers, delta.data(), data, lens, nullptr,
+                   nullptr, r, N, 0, 1, 0, hash_log, true);
     const int mflimit = lens[r] - 12, matchlimit = lens[r] - 5;
     for (int q = 0; q < LZ4T_DEEP_RING && q < DT; q++) ring[q] = delta[q];
     const lz4t_ring rg = {ring.data(), delta.data(), LZ4T_DEEP_RING};
@@ -268,17 +326,21 @@ extern "C" void lz4t_host_encode_deep_plain(const uint8_t* data,
   }
 }
 
-// K4's chain alone: delta (R, Dc + N + 8) u16, zeroed by the caller, gets
-// the deltas of every row's positions [first, mflimit].
+// K4's chain alone, built as the kernel that the wrapper routes the rows
+// to builds it (the split build for plain rows of at most LZ4T_DEEP_RING
+// bytes): delta (R, Dc + N + 8) u16, zeroed by the caller, gets the deltas
+// of every row's positions [first, mflimit].
 extern "C" void lz4t_host_deep_chain(const uint8_t* data, const int32_t* lens,
                                      const uint8_t* win, const int32_t* wlens,
                                      uint16_t* delta, int R, int N, int D,
                                      int K, int Dc, int hash_log) {
   std::vector<uint32_t> head(1 << hash_log);
   std::vector<uint8_t> row;
+  std::vector<uint32_t> peers;
   for (int r = 0; r < R; r++)
-    deep_chain_row(row, head, delta + (size_t)r * (Dc + N + 8), data, lens,
-                   win, wlens, r, N, D, K, Dc, hash_log);
+    deep_chain_row(row, head, peers, delta + (size_t)r * (Dc + N + 8), data,
+                   lens, win, wlens, r, N, D, K, Dc, hash_log,
+                   !D && N <= LZ4T_DEEP_RING);
 }
 
 // K1, K3 and K6a's ring (lz4_decode_ring.cuh) on the host: the parse fills

@@ -426,6 +426,14 @@ def test_level_ladder_sizes_strictly_improve():
 # K4's prebuilt chain and its ring (csrc/lz4_encode_deep.cuh)
 # ---------------------------------------------------------------------------
 
+def _deep_define(name: str) -> int:
+    """A #define of csrc/lz4_encode_deep.cuh."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "plz4_tpu_torch", "csrc",
+                           "lz4_encode_deep.cuh")) as f:
+        return int(re.search(rf"#define {name} (\d+)\b", f.read()).group(1))
+
+
 MAX_DELTA = 65535  # a longer link is stored as 0, which ends the chain
 WINDOW_CUT = encode_deep.WINDOW_CUT
 
@@ -470,12 +478,53 @@ def _host_chain(lib, rows, lens, wins, wlens, chunks=1):
     return out, hash_log, Dc
 
 
+PEER_CHUNK = _deep_define("LZ4T_DEEP_PEER_CHUNK")
+PEER_ENTRIES = _deep_define("LZ4T_DEEP_PEER_SLOTS") * PEER_CHUNK
+
+
+def _peer_edges() -> bytes:
+    """Random bytes with a bucket on both sides of every peer-chunk edge:
+    a run of one byte, or a 3-byte period, over the last steps of one
+    chunk and the first of the next."""
+    row = bytearray(make_incompressible(N, seed=62))
+    for k, e in enumerate(range(PEER_CHUNK, N, PEER_CHUNK)):
+        row[e - 40:e + 40] = (bytes([k]) * 80 if k % 2 else
+                              (make_incompressible(3, seed=k) * 27)[:80])
+    return bytes(row)
+
+
+def _peer_cases() -> dict:
+    """name -> plain row for the split build's peer ring (the table
+    ring's memory before the table needs it): full rows that cycle the
+    ring's slots, periods around the 32 lanes of a step, and rows too
+    short to fill one peer chunk."""
+    out = {"zeros": bytes(N)}
+    for p in (1, 2, 3, 4, 5, 8, 16, 31, 32, 33):
+        out[f"period{p}"] = (make_incompressible(p, seed=60 + p)
+                             * (N // p + 1))[:N]
+    out["not-a-multiple-of-32"] = make_compressible(PEER_ENTRIES + 7233,
+                                                    seed=61)
+    out["shorter-than-a-peer-chunk"] = make_compressible(PEER_CHUNK - 300,
+                                                         seed=63)
+    out["n13"] = b"abcabcabcabca"
+    out["n12"] = b"abcabcabcabc"
+    out["n5"] = b"abcab"
+    out["empty"] = b""
+    out["groups-straddle-peer-chunk-edges"] = _peer_edges()
+    return out
+
+
+PEER_CASES = _peer_cases()
+
+
 def _chain_batches():
     """name -> (args, chunks): the module's cached batches."""
     out = {"small": (_plain("small", 2)[0] + (None, None), 1),
            "full": (_plain("full", 2)[0] + (None, None), 1),
            "windows": (_windows(tuple(WINDOW_CASES), D, 2)[0], 1),
-           "chunks": (_chunks()[0], K)}
+           "chunks": (_chunks()[0], K),
+           "peers": (_rows(list(PEER_CASES.values()), N) + (None, None),
+                     1)}
     return out
 
 
@@ -483,7 +532,9 @@ def _chain_params():
     return [pytest.param(name, r, id=f"{name}-{r}")
             for name, n in (("small", len(SHAPES)), ("full", len(FULL)),
                             ("windows", len(WINDOW_CASES)), ("chunks", 2 * K))
-            for r in range(n)]
+            for r in range(n)] + [
+        pytest.param("peers", r, id=f"peers-{case}")
+        for r, case in enumerate(PEER_CASES)]
 
 
 @pytest.mark.parametrize("name,r", _chain_params())
@@ -607,14 +658,6 @@ def test_ring_rows_find_matches_at_the_window_edge():
 # it; the host build fills a chunk only when the parse waits for it and
 # poisons every chunk it hands back
 # ---------------------------------------------------------------------------
-
-def _deep_define(name: str) -> int:
-    """A #define of csrc/lz4_encode_deep.cuh."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(root, "plz4_tpu_torch", "csrc",
-                           "lz4_encode_deep.cuh")) as f:
-        return int(re.search(rf"#define {name} (\d+)\b", f.read()).group(1))
-
 
 CHUNK = _deep_define("LZ4T_DEEP_PIPE_CHUNK")
 RING_ENTRIES = _deep_define("LZ4T_DEEP_PIPE_SLOTS") * CHUNK
@@ -745,7 +788,13 @@ def test_pipe_ring_fits_shared_memory():
     assert slots & (slots - 1) == 0
     assert CHUNK & (CHUNK - 1) == 0 and CHUNK % 32 == 0
     assert _deep_define("LZ4T_DEEP_RING") == encode_deep.PIPE_MAX_ROW
-    # the chain ring, the table ring with two mbarriers a slot, the widest
-    # row: within a block's 232,448 bytes
+    # the split build's peer ring (a u32 word a position) lies in the
+    # table ring's entries
+    peer_slots = _deep_define("LZ4T_DEEP_PEER_SLOTS")
+    assert peer_slots & (peer_slots - 1) == 0
+    assert PEER_CHUNK & (PEER_CHUNK - 1) == 0 and PEER_CHUNK % 32 == 0
+    assert PEER_ENTRIES <= slots * CHUNK
+    # the chain ring, the table ring, two mbarriers a slot of each ring,
+    # the widest row: within a block's 232,448 bytes
     assert (2 * encode_deep.PIPE_MAX_ROW + slots * (CHUNK * 4 + 16)
-            + encode_deep.PIPE_MAX_ROW + 8) <= 232448
+            + peer_slots * 16 + encode_deep.PIPE_MAX_ROW + 8) <= 232448

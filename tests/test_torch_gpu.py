@@ -355,6 +355,50 @@ def test_encode_deep_pipelined_base_rows_match_plain(cuda, tries):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tries", [2, 32])
+def test_encode_deep_plain_kernel_chain_is_the_one_warp_chain(cuda, tries):
+    """The pipelined kernel's split build (the table warps match each
+    step's keys ahead of the build warp) leaves the chain that the table
+    kernel's one-warp build leaves, in each kernel's delta scratch: the
+    frame cell's 512 base blocks and the edge rows of _payloads()."""
+    from benchmark import corpus as bench_corpus
+
+    from plz4_tpu_torch.ops import _build
+
+    base = bench_corpus.silesia_bulk(512 * N)
+    edge, edge_lens = _rows(_payloads(), N)
+    rows = torch.cat([torch.from_numpy(np.frombuffer(base[:512 * N], np.uint8)
+                                       .reshape(512, N).copy()), edge])
+    lens = torch.cat([torch.full((512,), N, dtype=torch.int32), edge_lens])
+    d, ln = rows.to(cuda), lens.to(cuda)
+    R = rows.shape[0]
+    hash_log, Dc = encode_deep.deep_route(N, None)
+    assert Dc == 0
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    chains = []
+    for fn in ("lz4t_launch_plain", "lz4t_launch"):
+        out, tot, ok = encode.empty_outputs(R, N, cuda)
+        delta = torch.zeros((R, N + 8), dtype=torch.int16, device=cuda)
+        if fn == "lz4t_launch_plain":
+            ptrs = (d.data_ptr(), ln.data_ptr(), out.data_ptr(),
+                    tot.data_ptr(), ok.data_ptr(), delta.data_ptr())
+            ints = (R, N, out.shape[1], tries, hash_log)
+        else:
+            tab = torch.empty((R, N), dtype=torch.int32, device=cuda)
+            ptrs = (d.data_ptr(), ln.data_ptr(), 0, 0, out.data_ptr(),
+                    tot.data_ptr(), ok.data_ptr(), delta.data_ptr(),
+                    tab.data_ptr())
+            ints = (R, N, 0, 1, 0, out.shape[1], tries, hash_log)
+        _build.launch("lz4_encode_deep", ptrs, ints, stream, fn=fn)
+        chains.append((delta.cpu(), tot.cpu(), ok.cpu()))
+    (split, st, sk), (one, ot, ok1) = chains
+    for r in range(R):
+        assert torch.equal(split[r], one[r]), r
+    assert torch.equal(st, ot) and torch.equal(sk, ok1)
+    assert bool(split[:512].ne(0).any())
+
+
+@pytest.mark.gpu
 def test_encode_deep_wider_plain_rows_take_the_table_kernel(cuda):
     """Plain rows wider than the chain ring (N > 65,536) keep the walk
     table in device memory: not pipelined, the same bytes."""
